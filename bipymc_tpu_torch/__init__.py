@@ -1,0 +1,42 @@
+"""bipymc_tpu_torch — the PyTorch/CUDA port of ``bipymc_tpu``.
+
+A second package beside the JAX one, written for one NVIDIA H100. It
+mirrors ``bipymc_tpu``'s module paths, so the counterpart of
+``bipymc_tpu/samplers/dream.py`` is ``bipymc_tpu_torch/samplers/dream.py``.
+The JAX package stays the reference; the port imports ``torch`` and
+``numpy`` and nothing of JAX.
+
+This slice ports DREAM-zs on the per-generation engine: the user's
+target is a batched ``log_prob(x[n, d]) -> [n]``, and each generation
+launches two hand-written CUDA kernels, ``ops/distinct_idx.py`` (B3) and
+``ops/dream_proposal.py`` (B2). Entry points run on ``device="cuda"``
+unless the caller passes another device::
+
+    import bipymc_tpu_torch as bt
+    means = bt.baseline_config3_means(100)
+    s = bt.DreamZs(bt.gaussian_mixture(means), n_chains=256, seed=0,
+                   burnin_gens=500, archive_capacity=8192)
+    s.run_mcmc(3000, theta_0)
+"""
+
+from bipymc_tpu_torch.models.targets import (baseline_config3_means,
+                                             gaussian_mixture,
+                                             stratified_mode_init)
+from bipymc_tpu_torch.samplers.api import DreamZs, McmcSampler
+from bipymc_tpu_torch.utils.diagnostics import (effective_sample_size,
+                                                ess_rate, gelman_rubin,
+                                                mode_occupancy)
+from bipymc_tpu_torch.utils.init import var_ball
+
+__all__ = [
+    "DreamZs",
+    "McmcSampler",
+    "baseline_config3_means",
+    "effective_sample_size",
+    "ess_rate",
+    "gaussian_mixture",
+    "gelman_rubin",
+    "mode_occupancy",
+    "stratified_mode_init",
+    "var_ball",
+]

@@ -1,0 +1,43 @@
+"""DREAM-zs state to and from NumPy, under the JAX package's field names.
+
+A JAX ``DreamState`` flattened with ``np.asarray`` under its field names
+(``x``, ``logp``, ``archive.buf``, ``archive.fill``, ``archive.head``,
+``cr_p``, ``cr_cum``, ``cr_jump``, ``cr_count``, ``logp_sum``, ``gen``)
+becomes the port's state and back, so both packages can start from, and
+be compared at, the same state. Nothing here imports JAX.
+"""
+
+import numpy as np
+import torch
+
+from bipymc_tpu_torch.ensemble.archive import Archive
+from bipymc_tpu_torch.samplers.dream import DreamState
+
+_TENSORS = ("x", "logp", "cr_p", "cr_cum", "cr_jump", "cr_count",
+            "logp_sum")
+
+
+def dream_state_from_numpy(fields: dict, device) -> DreamState:
+    """``{name: array}`` under the JAX field names → ``DreamState``."""
+    # copies: the port writes the archive in place, and must not write
+    # into a buffer the caller still holds
+    t = {name: torch.as_tensor(np.array(fields[name]), device=device)
+         for name in _TENSORS}
+    archive = Archive(
+        buf=torch.as_tensor(np.array(fields["archive.buf"]),
+                            device=device),
+        fill=int(fields["archive.fill"]), head=int(fields["archive.head"]))
+    return DreamState(archive=archive, gen=int(fields["gen"]), **t)
+
+
+def dream_state_to_numpy(state: DreamState) -> dict:
+    """``DreamState`` → ``{name: np.ndarray}`` under the JAX field names
+    (the counters as int32 scalars, as the JAX state holds them)."""
+    out = {name: getattr(state, name).detach().cpu().numpy()
+           for name in _TENSORS}
+    out["archive.buf"] = state.archive.buf.detach().cpu().numpy()
+    for name, v in (("archive.fill", state.archive.fill),
+                    ("archive.head", state.archive.head),
+                    ("gen", state.gen)):
+        out[name] = np.int32(v)
+    return out
