@@ -6,32 +6,53 @@ mirrors ``bipymc_tpu``'s module paths, so the counterpart of
 The JAX package stays the reference; the port imports ``torch`` and
 ``numpy`` and nothing of JAX.
 
-This slice ports DREAM-zs on the per-generation engine: the user's
-target is a batched ``log_prob(x[n, d]) -> [n]``, and each generation
-launches two hand-written CUDA kernels, ``ops/distinct_idx.py`` (B3) and
-``ops/dream_proposal.py`` (B2). Entry points run on ``device="cuda"``
-unless the caller passes another device::
+The user's target is a batched ``log_prob(x[n, d]) -> [n]``. Two
+sampler families are ported:
+
+- DREAM-zs on the per-generation engine: each generation launches two
+  hand-written CUDA kernels, ``ops/distinct_idx.py`` (B3) and
+  ``ops/dream_proposal.py`` (B2).
+- The random-walk family (``Metropolis``, ``AdaptiveMetropolis``,
+  ``DrMetropolis``, ``Dram``): per-step, or with ``fused=True`` K steps
+  per launch of ``ops/fused_rw_chunk.py`` (B4), which evaluates the
+  built-in targets ``correlated_gaussian`` and ``gaussian_mixture`` in
+  device code.
+
+Entry points run on ``device="cuda"`` unless the caller passes another
+device::
 
     import bipymc_tpu_torch as bt
     means = bt.baseline_config3_means(100)
     s = bt.DreamZs(bt.gaussian_mixture(means), n_chains=256, seed=0,
                    burnin_gens=500, archive_capacity=8192)
     s.run_mcmc(3000, theta_0)
+
+    lp = bt.correlated_gaussian([1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]])
+    s = bt.Dram(lp, seed=1, n_chains=1, fused=True)
+    s.run_mcmc(20000, [0.0, 0.0], cov_est=np.eye(2))
 """
 
 from bipymc_tpu_torch.models.targets import (baseline_config3_means,
+                                             correlated_gaussian,
                                              gaussian_mixture,
                                              stratified_mode_init)
-from bipymc_tpu_torch.samplers.api import DreamZs, McmcSampler
+from bipymc_tpu_torch.samplers.api import (AdaptiveMetropolis, Dram,
+                                           DreamZs, DrMetropolis,
+                                           McmcSampler, Metropolis)
 from bipymc_tpu_torch.utils.diagnostics import (effective_sample_size,
                                                 ess_rate, gelman_rubin,
                                                 mode_occupancy)
 from bipymc_tpu_torch.utils.init import var_ball
 
 __all__ = [
+    "AdaptiveMetropolis",
+    "DrMetropolis",
+    "Dram",
     "DreamZs",
     "McmcSampler",
+    "Metropolis",
     "baseline_config3_means",
+    "correlated_gaussian",
     "effective_sample_size",
     "ess_rate",
     "gaussian_mixture",

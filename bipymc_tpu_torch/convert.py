@@ -1,10 +1,11 @@
-"""DREAM-zs state to and from NumPy, under the JAX package's field names.
+"""Sampler states to and from NumPy, under the JAX package's field names.
 
 A JAX ``DreamState`` flattened with ``np.asarray`` under its field names
 (``x``, ``logp``, ``archive.buf``, ``archive.fill``, ``archive.head``,
 ``cr_p``, ``cr_cum``, ``cr_jump``, ``cr_count``, ``logp_sum``, ``gen``)
 becomes the port's state and back, so both packages can start from, and
-be compared at, the same state. Nothing here imports JAX.
+be compared at, the same state. The same holds for the random-walk
+family's batched ``RwState``. Nothing here imports JAX.
 """
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 
 from bipymc_tpu_torch.ensemble.archive import Archive
 from bipymc_tpu_torch.samplers.dream import DreamState
+from bipymc_tpu_torch.samplers.rw import RwState
 
 _TENSORS = ("x", "logp", "cr_p", "cr_cum", "cr_jump", "cr_count",
             "logp_sum")
@@ -40,4 +42,29 @@ def dream_state_to_numpy(state: DreamState) -> dict:
                     ("archive.head", state.archive.head),
                     ("gen", state.gen)):
         out[name] = np.int32(v)
+    return out
+
+
+_RW_TENSORS = ("theta", "logp", "mean", "m2", "chol")
+
+
+def rw_state_from_numpy(fields: dict, device) -> RwState:
+    """``{name: array}`` of a batched JAX ``RwState`` (``theta, logp,
+    mean, m2, count, chol``, each with a leading chain axis) →
+    ``RwState``. Every chain of a run carries the same ``count``."""
+    count = np.asarray(fields["count"])
+    if count.size and not np.all(count == count.flat[0]):
+        raise ValueError("the chains' counts differ: the port keeps one "
+                         "count for every chain")
+    t = {name: torch.as_tensor(np.array(fields[name]), device=device)
+         for name in _RW_TENSORS}
+    return RwState(count=int(count.flat[0]), **t)
+
+
+def rw_state_to_numpy(state: RwState) -> dict:
+    """``RwState`` → ``{name: np.ndarray}`` under the JAX field names,
+    ``count`` as the JAX state holds it, [n_chains] int32."""
+    out = {name: getattr(state, name).detach().cpu().numpy()
+           for name in _RW_TENSORS}
+    out["count"] = np.full(state.theta.shape[0], state.count, np.int32)
     return out

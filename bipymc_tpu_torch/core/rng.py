@@ -2,10 +2,12 @@
 
 Counterpart of ``bipymc_tpu/core/rng.py``. The JAX package folds a key
 per (generation, chain) and draws one block of ``uint32`` words per
-generation; here an explicit ``torch.Generator`` (Philox on CUDA)
-advances instead, and each generation draws its block with
-:func:`draw_words`. Only the word→number conversions must agree with the
-JAX package, and they do: :func:`bits_to_uniform` bit for bit,
+generation; here a ``torch.Generator`` (Philox on CUDA) draws each
+block with :func:`draw_words`: DREAM-zs from one running generator
+(:func:`running_words`), the random-walk family from a generator seeded
+by (key, step) (:class:`StepWords`), so its words do not depend on which
+engine runs a step. Only the word→number conversions must agree with
+the JAX package, and they do: :func:`bits_to_uniform` bit for bit,
 :func:`uniform_to_normal` up to the two libraries' inverse-erf.
 
 Words are carried as **int32 bit patterns**: the same 32 bits as the JAX
@@ -63,6 +65,62 @@ def uniform_to_normal(u: torch.Tensor, dtype=None) -> torch.Tensor:
     return n if dtype is None else n.to(dtype)
 
 
+def running_words(gen: torch.Generator):
+    """A word source ``(t, n, n_words, device) -> [n, n_words]`` that
+    draws from one running generator and ignores ``t``."""
+    return lambda t, n, n_words, device: draw_words(gen, n, n_words, device)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+class StepWords:
+    """Words that depend on (key, global step t) alone.
+
+    The JAX package draws step t's words from ``step_key(key, t)``
+    whichever engine runs the step. Here step t's ``[n, n_words]`` block
+    comes from a generator seeded with a splitmix64 hash of (key, t), so
+    the words of (t, chain i) do not depend on which engine runs t or on
+    how a run was cut into segments: :meth:`block` of K steps equals K
+    calls. Callable as a word source ``(t, n, n_words, device)``.
+    """
+
+    def __init__(self, key: int):
+        self.key = int(key) & _MASK64
+        self._gens = {}
+
+    def _gen(self, device) -> torch.Generator:
+        device = torch.device(device)
+        if device not in self._gens:
+            self._gens[device] = torch.Generator(device=device)
+        return self._gens[device]
+
+    def seed_of(self, t: int) -> int:
+        return _splitmix64(self.key ^ _splitmix64(int(t)))
+
+    def __call__(self, t, n, n_words, device) -> torch.Tensor:
+        gen = self._gen(device).manual_seed(self.seed_of(t))
+        return draw_words(gen, n, n_words, device)
+
+    def block(self, t0, n_steps, n, n_words, device) -> torch.Tensor:
+        """``[n_steps, n, n_words]``: the words of steps t0 … t0+n_steps−1."""
+        out = torch.empty((n_steps, n, n_words), dtype=torch.int32,
+                          device=device)
+        gen = self._gen(device)
+        for k in range(n_steps):
+            gen.manual_seed(self.seed_of(t0 + k))
+            torch.randint(-2 ** 31, 2 ** 31, (n, n_words), generator=gen,
+                          device=device, dtype=torch.int32, out=out[k])
+        return out
+
+
 def seeded_generators(seed: int, n: int, device) -> list:
     """``n`` independent generators on ``device`` derived from one seed.
 
@@ -70,6 +128,12 @@ def seeded_generators(seed: int, n: int, device) -> list:
     port derives one generator seed per stream from NumPy's
     ``SeedSequence`` so the streams are reproducible and distinct.
     """
-    seeds = np.random.SeedSequence(int(seed)).generate_state(n, np.uint64)
-    return [torch.Generator(device=device).manual_seed(int(s))
-            for s in seeds]
+    return [torch.Generator(device=device).manual_seed(s)
+            for s in seed_ints(seed, n)]
+
+
+def seed_ints(seed: int, n: int) -> list:
+    """``n`` distinct 64-bit seeds derived from one seed by NumPy's
+    ``SeedSequence``."""
+    return [int(s) for s in
+            np.random.SeedSequence(int(seed)).generate_state(n, np.uint64)]

@@ -1,9 +1,16 @@
-"""Analytic targets for the DREAM-zs slice (BASELINE config 3).
+"""Analytic targets: BASELINE config 1 (correlated Gaussian) and 3
+(Gaussian mixture).
 
 Counterpart of ``bipymc_tpu/models/targets.py``. A target here is a
 **batched** callable, ``log_prob(x[n, d]) -> [n]``: the JAX package
 writes a per-row density and maps it over chains with ``vmap``; the
 batch dimension written out is the PyTorch form of that map.
+
+A CUDA kernel cannot inline an arbitrary user function the way a Pallas
+kernel inlines a jaxpr, so each built-in target also carries a
+:class:`KernelForm`: the name of its device function and its constants.
+Kernel B4 (``ops/fused_rw_chunk.py``) evaluates targets through it and
+refuses a target that has none.
 """
 
 import numpy as np
@@ -32,6 +39,67 @@ def stratified_mode_init(gen, means, n, var=4.0, dtype=torch.float32,
     return centers + noise
 
 
+class KernelForm:
+    """A built-in target as a CUDA kernel evaluates it in device code.
+
+    ``name`` names the device function (``csrc/fused_rw_chunk.cu``);
+    ``arrays`` and ``scalars`` hold its constants. :meth:`tensors` moves
+    the arrays to a device once per (device, dtype): the kernels read them
+    in float32, and the target's torch form reads them in its input's
+    dtype.
+    """
+
+    def __init__(self, name: str, arrays: dict, scalars: dict):
+        self.name = name
+        self.arrays = {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+        self.scalars = {k: float(v) for k, v in scalars.items()}
+        self._on = {}
+
+    def tensors(self, device, dtype=torch.float32) -> dict:
+        key = (torch.device(device), dtype)
+        if key not in self._on:
+            self._on[key] = {k: torch.as_tensor(v, dtype=dtype, device=key[0])
+                             for k, v in self.arrays.items()}
+        return self._on[key]
+
+
+# the targets that carry a kernel form, by KernelForm.name
+KERNEL_TARGETS = ("correlated_gaussian", "gaussian_mixture")
+
+
+def kernel_form(log_prob):
+    """The target's :class:`KernelForm`, or None for a target that has
+    none (any user function)."""
+    return getattr(log_prob, "kernel_form", None)
+
+
+def correlated_gaussian(mean, cov):
+    """Correlated-Gaussian log-density N(mean, cov) (BASELINE config 1).
+
+    Returns a batched ``log_prob(x[n, d]) -> [n]`` with the JAX package's
+    ``inv``, ``log_det`` and term order, ``−½(q + log_det + d·log 2π)``
+    with ``q = Σ((r @ inv) · r)``, constants included.
+    """
+    mean = np.asarray(mean)
+    cov = np.asarray(cov)
+    d = mean.shape[-1]
+    chol = np.linalg.cholesky(cov)
+    log_det = 2.0 * float(np.sum(np.log(np.diagonal(chol))))
+    inv = np.linalg.inv(cov)
+    log_2pi_d = d * float(np.log(2.0 * np.pi))
+    form = KernelForm("correlated_gaussian", {"mean": mean, "inv": inv},
+                      {"log_det": log_det, "log_2pi_d": log_2pi_d})
+
+    def log_prob(x):
+        t = form.tensors(x.device, x.dtype)
+        r = x - t["mean"]
+        q = torch.sum((r @ t["inv"]) * r, dim=-1)
+        return -0.5 * (q + log_det + log_2pi_d)
+
+    log_prob.kernel_form = form
+    return log_prob
+
+
 def gaussian_mixture(means, sigma=1.0, weights=None):
     """Isotropic Gaussian mixture in d dims (BASELINE config 3 posterior).
 
@@ -39,7 +107,7 @@ def gaussian_mixture(means, sigma=1.0, weights=None):
     Returns a batched ``log_prob(x[n, d]) -> [n]`` with the JAX package's
     ``log_w`` and ``norm`` constants and its term order, summed over modes
     by ``logsumexp``. The constants move to a device once per
-    (device, dtype) and are then reused.
+    (device, dtype), through the kernel form, and are then reused.
     """
     means = np.asarray(means)
     if not np.issubdtype(means.dtype, np.floating):
@@ -51,17 +119,14 @@ def gaussian_mixture(means, sigma=1.0, weights=None):
         w = np.asarray(weights)
         log_w = np.log(w / np.sum(w))
     norm = -0.5 * d * float(np.log(2.0 * np.pi * sigma ** 2))
-    consts = {}
+    form = KernelForm("gaussian_mixture", {"means": means, "log_w": log_w},
+                      {"norm": norm, "sigma2": sigma ** 2})
 
     def log_prob(x):
-        key = (x.device, x.dtype)
-        if key not in consts:
-            consts[key] = (torch.as_tensor(means, dtype=x.dtype,
-                                           device=x.device),
-                           torch.as_tensor(log_w, dtype=x.dtype,
-                                           device=x.device))
-        mu, lw = consts[key]
-        sq = torch.sum((x[:, None, :] - mu) ** 2, dim=-1)         # [n, k]
-        return torch.logsumexp(lw + norm - 0.5 * sq / sigma ** 2, dim=-1)
+        t = form.tensors(x.device, x.dtype)
+        sq = torch.sum((x[:, None, :] - t["means"]) ** 2, dim=-1)  # [n, k]
+        return torch.logsumexp(t["log_w"] + norm - 0.5 * sq / sigma ** 2,
+                               dim=-1)
 
+    log_prob.kernel_form = form
     return log_prob

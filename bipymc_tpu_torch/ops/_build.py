@@ -40,6 +40,9 @@ SIGNATURES = {
     "dream_proposal": ("dream_propose_launch",
                        [_P, _L, _P, _I, _P, _L, _P, _L, _P, _L, _P, _I, _I,
                         _I, _F, _F, _F, _P, _P, _P]),
+    "fused_rw_chunk": ("fused_rw_chunk_launch",
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                        _F, _F, _I, _P, _P, _P, _P, _P]),
 }
 
 

@@ -1,14 +1,18 @@
-"""ChainPool: runs a population sampler's generation step on one device.
+"""ChainPool: runs a population sampler's step on one device.
 
 Counterpart of ``bipymc_tpu/parallel/pool.py`` without a mesh: the whole
-population lives on one device and each generation is one call of the
-batched step. The pool draws each generation's random words from the
-run's generator and hands them to the step, so the step itself is the
-same function the tests feed with the JAX package's words.
+population lives on one device and each step is one call of the batched
+step. The pool takes each step's random words from a word source
+``words(t, n, n_words, device) -> [n, n_words]`` and hands them to the
+step, so the step itself is the same function the tests feed with the
+JAX package's words. DREAM-zs draws from one running generator
+(``core/rng.running_words``); the random-walk family from
+``core/rng.StepWords``, whose words depend on the global step alone.
 
-``run_until`` is a host loop over chunks of generations. The R̂ test
-reads one device value per chunk, after the warm-up chunks; no
-generation waits for the device.
+``run_until`` is a host loop over chunks of steps. The R̂ test reads one
+device value per chunk, after the warm-up chunks; no step waits for the
+device. A fused ``chunk_runner`` may run whole chunks instead of the
+step, its history folded into R̂ as one block.
 """
 
 import math
@@ -16,10 +20,9 @@ from typing import Callable
 
 import torch
 
-from bipymc_tpu_torch.core.rng import draw_words
 from bipymc_tpu_torch.core.scan import run_scan_thinned
 from bipymc_tpu_torch.utils.streaming import (
-    rhat_compute, rhat_init, rhat_update)
+    rhat_compute, rhat_init, rhat_update, rhat_update_block)
 
 
 def _default_position(state):
@@ -28,8 +31,8 @@ def _default_position(state):
 
 class ChainPool:
     """step: ``(state, words, t) -> (state, info)``; n_words: ``d ->``
-    random words per chain per generation; collect_fn: ``(state, info)
-    -> dict`` of tensors kept per collected generation."""
+    random words per chain per step; collect_fn: ``(state, info) ->
+    dict`` of tensors kept per collected step."""
 
     def __init__(self, step: Callable, n_words: Callable[[int], int],
                  collect_fn: Callable | None = None):
@@ -37,43 +40,68 @@ class ChainPool:
         self.n_words = n_words
         self.collect_fn = collect_fn
 
-    def _stepper(self, state, generator):
-        n, d = state.x.shape
+    def _stepper(self, words: Callable, pos: torch.Tensor):
+        n, d = pos.shape
         n_words = self.n_words(d)
-        device = state.x.device
+        device = pos.device
 
         def one(s, t):
-            return self.step(s, draw_words(generator, n, n_words, device), t)
+            return self.step(s, words(t, n, n_words, device), t)
 
         return one
 
-    def run(self, state, generator: torch.Generator, n_steps: int,
-            thin: int = 1, collect_fn: Callable | None = None, t0: int = 0):
-        """Run ``n_steps`` generations, collecting every ``thin``-th.
+    def run(self, state, words: Callable, n_steps: int, thin: int = 1,
+            collect_fn: Callable | None = None, t0: int = 0,
+            position_fn: Callable | None = None):
+        """Run ``n_steps`` steps, collecting every ``thin``-th.
 
-        Default collection: the step info's fields per kept generation.
+        Default collection: the step info's fields per kept step.
         Returns (final_state, history of [n_kept, ...] tensors).
         """
         collect_fn = collect_fn or self.collect_fn
-        return run_scan_thinned(self._stepper(state, generator), state,
-                                n_steps, thin, collect_fn, t0)
+        pos = (position_fn or _default_position)(state)
+        return run_scan_thinned(self._stepper(words, pos), state, n_steps,
+                                thin, collect_fn, t0)
 
-    def run_until(self, state, generator: torch.Generator, rhat_tol=1.05,
-                  chunk=100, max_chunks=200, warmup_chunks=2,
-                  position_fn=None, t0: int = 0):
-        """Run chunks of ``chunk`` generations until R̂ < rhat_tol.
+    def run_until(self, state, words: Callable, rhat_tol=1.05, chunk=100,
+                  max_chunks=200, warmup_chunks=2, position_fn=None,
+                  t0: int = 0, chunk_runner: Callable | None = None):
+        """Run chunks of ``chunk`` steps until R̂ < rhat_tol.
 
         The moments restart after ``warmup_chunks`` chunks, so early
-        transients stay out of R̂. Returns (final_state, info) with
-        ``steps``, the final ``rhat`` [d], and the streamed per-chain
-        ``mean`` and ``var`` [n_chains, d].
+        transients stay out of R̂. ``chunk_runner``: a fused runner
+        ``(state, words, n_steps, t0) -> (state, history)`` that runs
+        every chunk in place of the step, its ``history["x"]`` folded by
+        ``rhat_update_block``; its ``position_field`` must be the field
+        ``position_fn`` reads, ``chunk`` a multiple of its
+        ``chunk_multiple`` and ``t0`` of its ``align``. Returns
+        (final_state, info) with ``steps``, the final ``rhat`` [d], and
+        the streamed per-chain ``mean`` and ``var`` [n_chains, d].
         """
         position_fn = position_fn or _default_position
+        if chunk_runner is not None:
+            # fused chunks fold the runner's own history, per-step chunks
+            # position_fn(state): they must be the same series
+            field = getattr(chunk_runner, "position_field", "x")
+            if position_fn(state) is not getattr(state, field):
+                raise ValueError(
+                    "run_until(chunk_runner=...): position_fn must extract "
+                    f"the runner's recorded position (state.{field})")
+            mult = getattr(chunk_runner, "chunk_multiple", None)
+            if mult and chunk % mult:
+                raise ValueError(
+                    f"chunk={chunk} must be a multiple of the fused "
+                    f"runner's chunk length {mult}")
+            align = getattr(chunk_runner, "align", None)
+            if align and t0 % align:
+                raise ValueError(
+                    f"t0={t0} must be aligned to the fused runner's "
+                    f"alignment {align}")
         pos0 = position_fn(state)
         n_total, d = pos0.shape[0], pos0.shape[-1]
         if n_total < 2:
             raise ValueError("R-hat early stop needs n_chains >= 2")
-        one = self._stepper(state, generator)
+        one = self._stepper(words, pos0)
 
         def fresh():
             return rhat_init(n_total, d, pos0.dtype, pos0.device)
@@ -86,9 +114,13 @@ class ChainPool:
             if ci == warmup_chunks:
                 rc = fresh()                 # the monitored window starts
             t_start = t0 + ci * chunk
-            for t in range(t_start, t_start + chunk):
-                state, _ = one(state, t)
-                rc = rhat_update(rc, position_fn(state))
+            if chunk_runner is not None:
+                state, hist = chunk_runner(state, words, chunk, t_start)
+                rc = rhat_update_block(rc, hist["x"])
+            else:
+                for t in range(t_start, t_start + chunk):
+                    state, _ = one(state, t)
+                    rc = rhat_update(rc, position_fn(state))
             ci += 1
             if ci > warmup_chunks:
                 rhat = rhat_compute(rc, n_total)

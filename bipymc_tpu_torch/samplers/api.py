@@ -1,9 +1,11 @@
 """User-facing sampler classes with the reference's ergonomics.
 
 Counterpart of the parts of ``bipymc_tpu/samplers/api.py`` that DREAM-zs
-uses: ``sampler = DreamZs(log_prob, ...); sampler.run_mcmc(n, theta_0)``,
-results through ``chain`` / ``get_chain`` / ``acceptance_fraction``, the
-R̂-stopped ``run_mcmc_until``, the continuation contract and ``reset``.
+and the random-walk family (``Metropolis``, ``AdaptiveMetropolis``,
+``DrMetropolis``, ``Dram``) use: ``sampler = Dram(log_prob, ...);
+sampler.run_mcmc(n, theta_0)``, results through ``chain`` / ``get_chain``
+/ ``acceptance_fraction``, the R̂-stopped ``run_mcmc_until``, the
+continuation contract and ``reset``.
 
 ``log_prob`` is a **batched** target, ``[n, d] → [n]`` (the JAX package
 maps a per-row function with ``vmap``; here the batch dimension is
@@ -11,9 +13,12 @@ written out). Every entry point runs on ``device="cuda"`` unless the
 caller passes another device; nothing moves to the CPU because CUDA is
 missing.
 
-Randomness: one seed gives three generators on the device (start
-points, initial archive, run), so ``reset()`` reruns identically and a
-continued run draws fresh words from where the last run stopped.
+Randomness: for DREAM-zs one seed gives three generators on the device
+(start points, initial archive, run); for the random-walk family one
+generator for the start points and a key whose words depend on the
+global step alone (``core/rng.StepWords``), so its per-step and fused
+engines read the same words. Either way ``reset()`` reruns identically
+and a continued run draws fresh words from where the last run stopped.
 """
 
 import warnings
@@ -21,15 +26,21 @@ import warnings
 import numpy as np
 import torch
 
-from bipymc_tpu_torch.core.rng import seeded_generators
+from bipymc_tpu_torch.core.rng import (StepWords, running_words,
+                                        seed_ints, seeded_generators)
+from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
 from bipymc_tpu_torch.parallel.pool import ChainPool
-from bipymc_tpu_torch.samplers import dream
+from bipymc_tpu_torch.samplers import dream, rw
+from bipymc_tpu_torch.samplers.rw_fused import (check_rw_fusable,
+                                                make_rw_chunk_runner)
 from bipymc_tpu_torch.utils.diagnostics import acceptance_fraction
 from bipymc_tpu_torch.utils.init import var_ball
 
 _FUSED_ITEM = "ROADMAP Queue A item 5 (DREAM-zs fused engine)"
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _API_ITEM = "ROADMAP Queue A item 7 (pool and API)"
+_RW_BLOCK_ITEM = ("ROADMAP Queue A item 10 (RW family: user targets in "
+                  "kernel B4)")
 
 
 def _as_2d_theta0(theta_0, n_chains, gen, spread, dtype, device):
@@ -123,7 +134,7 @@ class McmcSampler:
         if not self._chunks:
             raise RuntimeError("call run_mcmc first")
 
-    def _continuing(self, theta_0, spread=1.0):
+    def _continuing(self, theta_0, spread=1.0, cov_est=None):
         """Continuation contract: after a run, further runs continue from
         ``final_state`` and IGNORE start-only arguments (with a warning).
         Call ``reset()`` first to start afresh."""
@@ -133,7 +144,9 @@ class McmcSampler:
                     "theta_0 is required for the first run (no state to "
                     "continue from)")
             return False
-        ignored = ["theta_0"] if theta_0 is not None else []
+        ignored = [name for name, v in
+                   (("theta_0", theta_0), ("cov_est", cov_est))
+                   if v is not None]
         if spread != 1.0:
             ignored.append("spread")
         if ignored:
@@ -235,7 +248,8 @@ class DreamZs(McmcSampler):
                 f"progress_every is not ported: {_API_ITEM}")
         state = self._ensure_state(theta_0, spread, n_gens)
         final_state, history = self._pool_obj.run(
-            state, self._gen_run, n_gens, thin=thin, t0=self._steps_run)
+            state, running_words(self._gen_run), n_gens, thin=thin,
+            t0=self._steps_run)
         self._store(final_state, history, n_gens)
         return self
 
@@ -253,7 +267,8 @@ class DreamZs(McmcSampler):
             theta_0, spread, chunk * max_chunks,
             auto_capacity_cap=max(8192, 32 * self.n_chains))
         final_state, info = self._pool_obj.run_until(
-            state, self._gen_run, rhat_tol=rhat_tol, chunk=chunk,
+            state, running_words(self._gen_run), rhat_tol=rhat_tol,
+            chunk=chunk,
             max_chunks=max_chunks, warmup_chunks=warmup_chunks,
             t0=self._steps_run)
         self._final_state = final_state
@@ -261,3 +276,178 @@ class DreamZs(McmcSampler):
         self._steps_run += int(info["steps"])
         return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                     else np.asarray(v)) for k, v in info.items()}
+
+
+# ===========================================================================
+# Random-walk family (batched over chains)
+# ===========================================================================
+
+def _rw_position(state):
+    """The RW family's position, by identity (``ChainPool.run_until``
+    checks it against the fused runner's ``position_field``)."""
+    return state.theta
+
+
+class _RwSampler(McmcSampler):
+    """The random-walk family on one device, per-step or fused.
+
+    ``fused=True`` runs aligned steady segments on the fused engine
+    (``samplers/rw_fused.py``: K steps per launch of kernel B4,
+    K = ``adapt_interval`` for the adaptive family, else 100), with the
+    per-step engine for the unaligned head and the remainder. Both
+    engines read the same words for the same global step
+    (``core/rng.StepWords``), so they take the same accept decisions.
+    The fused engine is float32-only and needs a target with a kernel
+    form (``models/targets.KERNEL_TARGETS``); ``log_prob_block=`` raises
+    ``NotImplementedError``.
+    """
+
+    _make_config = staticmethod(rw.metropolis_config)
+
+    def __init__(self, log_like_fn, seed=0, n_chains=1, dtype=torch.float32,
+                 fused=False, log_prob_block=None, device="cuda",
+                 **config_kw):
+        if log_prob_block is not None:
+            raise NotImplementedError(
+                f"log_prob_block= is not ported: {_RW_BLOCK_ITEM}")
+        super().__init__(log_like_fn, seed=seed, dtype=dtype, device=device)
+        self.n_chains = int(n_chains)
+        self.cfg = self._make_config(**config_kw)
+        self.fused = bool(fused)
+        self._runner = None
+        self._words = None
+        if self.fused:
+            check_rw_fusable(self.cfg)
+            if dtype != torch.float32:
+                raise ValueError("fused=True is float32-only (kernel B4 "
+                                 "computes in float32)")
+            if kernel_form(log_like_fn) is None:
+                raise ValueError(
+                    "fused=True needs a target that kernel B4 evaluates in "
+                    f"device code: {', '.join(KERNEL_TARGETS)} "
+                    "(bipymc_tpu_torch.models.targets); run other targets "
+                    "with fused=False")
+            self._runner = make_rw_chunk_runner(
+                log_like_fn, self.cfg, self.n_chains,
+                chunk_steps=self._fused_K)
+        self._pool = ChainPool(step=rw.make_step(log_like_fn, self.cfg),
+                               n_words=rw.n_words, collect_fn=self._collect)
+
+    @property
+    def _fused_K(self):
+        return int(self.cfg.adapt_interval) if self.cfg.adapt else 100
+
+    @staticmethod
+    def _collect(state, info):
+        return {"x": state.theta, "logp": info.logp,
+                "accepted": info.accepted}
+
+    def _prepare(self, theta_0, cov_est, spread):
+        """The start state: a fresh one from ``theta_0`` and the seed, or
+        the last run's final state."""
+        if self._continuing(theta_0, spread=spread, cov_est=cov_est):
+            return self._final_state
+        init_seed, run_key = seed_ints(self.seed, 2)
+        g_init = torch.Generator(device=self.device).manual_seed(init_seed)
+        self._words = StepWords(run_key)
+        theta0 = _as_2d_theta0(theta_0, self.n_chains, g_init, spread,
+                               self.dtype, self.device)
+        d = theta0.shape[-1]
+        if cov_est is None:
+            cov_est = torch.eye(d, dtype=self.dtype) * spread ** 2
+        cov_est = torch.as_tensor(np.asarray(cov_est), dtype=self.dtype,
+                                  device=self.device)
+        return rw.init(theta0, self.log_like_fn, cov_est)
+
+    def _per_step(self, state, n_steps, thin=1):
+        return self._pool.run(state, self._words, n_steps, thin=thin,
+                              t0=self._steps_run, position_fn=_rw_position)
+
+    def run_mcmc(self, n_samples, theta_0=None, cov_est=None, thin=1,
+                 spread=1.0, progress_every=None):
+        """Run ``n_samples`` steps from ``theta_0`` ([d] or [n_chains, d]),
+        keeping every ``thin``-th.
+
+        cov_est: the initial proposal covariance ([d] diagonal or [d, d];
+        default: identity scaled by ``spread²``).
+        """
+        if progress_every is not None:
+            raise NotImplementedError(
+                f"progress_every is not ported: {_API_ITEM}")
+        state = self._prepare(theta_0, cov_est, spread)
+        if not (self.fused and thin == 1):
+            final_state, history = self._per_step(state, n_samples, thin)
+            self._store(final_state, history, n_samples)
+            return self
+        # [per-step to a chunk boundary] → [fused K-step chunks] →
+        # [per-step remainder]; only the adaptive family needs its chunk
+        # starts on refresh boundaries (t % K == 0)
+        K = self._fused_K
+        n1 = (K - self._steps_run % K) % K if self.cfg.adapt else 0
+        n1 = min(n1, n_samples)
+        n2 = (n_samples - n1) // K * K
+        for kind, n_seg in (("per_step", n1), ("fused", n2),
+                            ("per_step", n_samples - n1 - n2)):
+            if n_seg == 0:
+                continue
+            if kind == "fused":
+                final_state, history = self._runner(
+                    state, self._words, n_seg, self._steps_run)
+            else:
+                final_state, history = self._per_step(state, n_seg)
+            self._store(final_state, history, n_seg)
+            state = final_state
+        return self
+
+    def run_mcmc_until(self, theta_0=None, cov_est=None, rhat_tol=1.05,
+                       chunk=100, max_chunks=200, warmup_chunks=2,
+                       spread=1.0):
+        """Run until the streamed R̂ across the chains drops below
+        ``rhat_tol`` (needs n_chains ≥ 2). Keeps no history; returns a
+        dict with ``steps``, the final ``rhat`` [d] and the per-chain
+        ``mean`` / ``var`` [n_chains, d], as host NumPy.
+
+        With ``fused=True`` the chunk is rounded up to a multiple of K and
+        every chunk is fused, unless an adaptive sampler continues from a
+        step that is not a multiple of K: that run stays per-step.
+        """
+        if self.n_chains < 2:
+            raise ValueError("R-hat early stop needs n_chains >= 2")
+        state = self._prepare(theta_0, cov_est, spread)
+        chunk_runner = None
+        if self.fused:
+            K = self._fused_K
+            if chunk % K:
+                chunk += K - chunk % K
+            if not self.cfg.adapt or self._steps_run % K == 0:
+                chunk_runner = self._runner
+        final_state, info = self._pool.run_until(
+            state, self._words, rhat_tol=rhat_tol, chunk=chunk,
+            max_chunks=max_chunks, warmup_chunks=warmup_chunks,
+            position_fn=_rw_position, t0=self._steps_run,
+            chunk_runner=chunk_runner)
+        self._final_state = final_state
+        self._sync()
+        self._steps_run += int(info["steps"])
+        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for k, v in info.items()}
+
+
+class Metropolis(_RwSampler):
+    """Metropolis-Hastings with a Gaussian random walk."""
+    _make_config = staticmethod(rw.metropolis_config)
+
+
+class AdaptiveMetropolis(_RwSampler):
+    """Haario adaptive Metropolis."""
+    _make_config = staticmethod(rw.adaptive_metropolis_config)
+
+
+class DrMetropolis(_RwSampler):
+    """Two-stage delayed-rejection Metropolis."""
+    _make_config = staticmethod(rw.dr_metropolis_config)
+
+
+class Dram(_RwSampler):
+    """DRAM: delayed rejection with adaptive Metropolis."""
+    _make_config = staticmethod(rw.dram_config)

@@ -4,12 +4,13 @@ Counterpart of ``bipymc_tpu/utils/streaming.py`` on one device:
 per-chain Welford moments (count, mean, M2 per dimension) stay on the
 device and fold in one population snapshot per generation; R̂ is
 computed from them once per chunk. ``n`` is a host float: every chain
-folds the same number of snapshots. The block fold and the merge
-(``rhat_update_block``, ``rhat_merge``) come with the fused engine.
+folds the same number of snapshots. ``rhat_update_block`` folds a fused
+chunk's whole history; ``rhat_merge`` waits for the fused DREAM engine.
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -30,6 +31,24 @@ def rhat_update(carry: RhatCarry, x: torch.Tensor) -> RhatCarry:
     delta = x - carry.mean
     mean = carry.mean + delta / n
     m2 = carry.m2 + delta * (x - mean)
+    return RhatCarry(n=n, mean=mean, m2=m2)
+
+
+def rhat_update_block(carry: RhatCarry, xs: torch.Tensor) -> RhatCarry:
+    """Fold a block xs [T, n_chains, d] into the moments at once (Chan et
+    al. pairwise merge; equal to T :func:`rhat_update` calls up to float
+    re-association). The fused chunks fold their history with it. The
+    count fractions are rounded in float32, as the JAX package's are."""
+    t = float(xs.shape[0])
+    bmean = torch.mean(xs, dim=0)
+    bm2 = torch.sum((xs - bmean[None]) ** 2, dim=0)
+    n = carry.n + t
+    delta = bmean - carry.mean
+    # carry.n == 0 (a fresh window) reduces to the block's own moments
+    frac = float(np.float32(t) / np.float32(n))
+    wgt = float(np.float32(carry.n) * np.float32(t) / np.float32(n))
+    mean = carry.mean + delta * frac
+    m2 = carry.m2 + bm2 + delta ** 2 * wgt
     return RhatCarry(n=n, mean=mean, m2=m2)
 
 

@@ -21,6 +21,13 @@ non-zero:
    way as the floor of any launch. (The whole DREAM-zs step on the card
    is held against the same step on the CPU by
    ``tests/test_torch_cuda.py::test_step_on_card_matches_step_on_cpu``.)
+2b. B4 (``fused_rw_chunk``) against its plain version
+   on the card: ``delayed`` in {False, True} × the two targets with a
+   kernel form × (n, d, K) in {(1, 2, 50), (4, 2, 20), (37, 129, 7),
+   (256, 100, 50)}, and a non-finite ``dy1`` row that must be rejected.
+   Accept decisions and stages exactly equal, x and logp within rtol
+   1e-5 / atol 1e-6. Timed at the config-1 shape (the kernels line) and
+   at the wide shape.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -30,7 +37,18 @@ non-zero:
 4. The R̂ stop: 256 chains in one basin, ``run_mcmc_until`` to R̂ < 1.1,
    one warm call, ``reset()``, one timed call. Both kernels must have
    launched once per generation of the two calls.
-5. One JSON line of the kernels, the card's line, and the result line.
+5. The config-1 main path as ``benchmarks/run_all.py`` runs it:
+   ``Dram(correlated_gaussian([1, -1], [[2, .8], [.8, 1]]), seed=1,
+   n_chains=1, fused=True)``, 20,000 steps, a warm continuation of
+   20,000, a timed continuation of 20,000. B4 must have launched
+   3 × 20,000 / 50 = 1,200 times, and the posterior must match the truth
+   (mean within 0.15, every covariance entry within 0.3). Then 10 chunks
+   timed alone and 10 under the profiler, and the Welford replay's share
+   of a chunk.
+6. The R̂ stop on the fused RW path: ``Dram(fused=True)``, 4 chains,
+   ``run_mcmc_until`` to R̂ < 1.1, one warm call, ``reset()``, one timed
+   call; B4 must have launched once per fused chunk of the two calls.
+7. One JSON line of the kernels, the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -305,24 +323,27 @@ def main_path(dev):
     return launches
 
 
-def busy_share(s, n_gens=200):
-    """The device's busy share of a generation, and its time by kernel:
-    ``n_gens`` generations timed alone, then ``n_gens`` more under the
-    profiler (which slows the host, not the kernels)."""
+def busy_share(s, n_units=200, per_unit=1, unit="gen"):
+    """The device's busy share of a unit of work, and its time by kernel:
+    ``n_units`` units of ``per_unit`` steps timed alone, then as many
+    under the profiler (which slows the host, not the kernels)."""
+    n_steps = n_units * per_unit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s.run_mcmc(n_gens)
-    wall_us = (time.perf_counter() - t0) / n_gens * 1e6
-    rows = device_times(lambda: s.run_mcmc(n_gens), 1)
-    busy_us = sum(us for us, _ in rows.values()) / n_gens
-    log("device:", json.dumps({"wall_us_per_gen": wall_us,
-                               "busy_us_per_gen": busy_us,
+    s.run_mcmc(n_steps)
+    wall_us = (time.perf_counter() - t0) / n_units * 1e6
+    rows = device_times(lambda: s.run_mcmc(n_steps), 1)
+    busy_us = sum(us for us, _ in rows.values()) / n_units
+    log("device:", json.dumps({f"wall_us_per_{unit}": wall_us,
+                               f"busy_us_per_{unit}": busy_us,
                                "busy_share": busy_us / wall_us,
-                               "kernels_per_gen": sum(
-                                   c for _, c in rows.values()) / n_gens}))
-    for key, (us, count) in sorted(rows.items(), key=lambda r: -r[1][0]):
-        log(f"  {us / n_gens:8.3f} us/gen {count / n_gens:5.1f}/gen  "
-            f"{key[:100]}")
+                               f"kernels_per_{unit}": sum(
+                                   c for _, c in rows.values()) / n_units}))
+    for key, (us, count) in sorted(rows.items(),
+                                   key=lambda r: -r[1][0])[:15]:
+        log(f"  {us / n_units:8.3f} us/{unit} {count / n_units:6.1f}/{unit}"
+            f"  {key[:100]}")
+    return wall_us
 
 
 # ---------------------------------------------------------------- phase 4
@@ -359,6 +380,203 @@ def rhat_stop(dev):
         raise AssertionError(f"R-hat stop not reached: max R-hat {rhat}")
 
 
+# ---------------------------------------------------------------- phase 2b
+C1_MEAN, C1_COV = [1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]]
+C1_STEPS, C1_K = 20000, 50
+
+
+def b4_target(kind, d):
+    import bipymc_tpu_torch as bt
+    rng = np.random.default_rng(d)
+    if kind == "gaussian":
+        a = rng.standard_normal((d, d))
+        return bt.correlated_gaussian(rng.standard_normal(d),
+                                      a @ a.T / d + np.eye(d))
+    return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
+
+
+def b4_operands(n, d, K, seed, dev):
+    """x0, dy1, dy2, scal as the fused runner builds them (z draws, a
+    2.4/√d step, the whitened norms, log u)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(generator=g, device=dev, dtype=torch.float32)
+    isk = float(np.float32(1.0) / np.sqrt(np.float32(5.0)))
+    step = 2.4 / math.sqrt(d)
+    z1, z2 = torch.randn((K, n, d), **f32), torch.randn((K, n, d), **f32)
+    u = torch.rand((2, K, n), **f32).clamp_min(1e-7)
+    w = z1 - isk * z2
+    scal = torch.stack([(z1 * z1).sum(-1), (w * w).sum(-1), u[0].log(),
+                        u[1].log()], -1).contiguous()
+    return (torch.randn((n, d), **f32), step * z1, isk * step * z2, scal)
+
+
+def check_b4(dev):
+    from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
+                                                     fused_rw_chunk_plain)
+
+    cases = [(n, d, K, kind, delayed)
+             for n, d, K in ((1, 2, 50), (4, 2, 20), (37, 129, 7),
+                             (256, 100, 50))
+             for kind in ("gaussian", "mixture")
+             for delayed in (False, True)]
+    errs = {}
+    # the last case has a non-finite dy1 row, which must be rejected
+    for i, (n, d, K, kind, delayed) in enumerate(
+            cases + [(8, 2, 20, "gaussian", True)]):
+        nonfinite = i == len(cases)
+        lp = b4_target(kind, d)
+        x0, dy1, dy2, scal = b4_operands(n, d, K, seed=i, dev=dev)
+        if nonfinite:
+            dy1[5, 3] = torch.inf
+        dy2 = dy2 if delayed else None
+        lp0 = lp(x0)
+        out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed)
+        ref = fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp, delayed)
+        torch.cuda.synchronize()
+        ex = (out[0] - ref[0]).abs()
+        el = (out[1] - ref[1]).abs()
+        if not (torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
+                and bool(torch.all(ex <= 1e-6 + 1e-5 * ref[0].abs()))
+                and bool(torch.all(el <= 1e-6 + 1e-5 * ref[1].abs()))):
+            raise AssertionError(
+                f"B4 differs from its plain version at n={n} d={d} K={K} "
+                f"{kind} delayed={delayed} nonfinite={nonfinite}: accepts "
+                f"equal {torch.equal(out[2], ref[2])}, stages equal "
+                f"{torch.equal(out[3], ref[3])}, max |dx| "
+                f"{float(ex.max()):.3g}, max |dlogp| {float(el.max()):.3g}")
+        if nonfinite and int(out[3][5, 3]) == 1:
+            raise AssertionError("B4 accepted a non-finite proposal")
+        errs[(n, d, K, kind, delayed)] = max(float(ex.max()),
+                                             float(el.max()))
+    log(f"B4 fused_rw_chunk: same decisions as the plain version, x and "
+        f"logp within tolerance, in {len(cases) + 1} cases")
+
+    def timed(n, d, K):
+        lp = b4_target("gaussian", d)
+        x0, dy1, dy2, scal = b4_operands(n, d, K, seed=99, dev=dev)
+        lp0 = lp(x0)
+        kernel = lambda: fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True)
+        plain = lambda: fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp,
+                                             True)
+        times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
+                 call_ms(kernel), call_ms(plain, reps=30, warmup=3))
+        stage = kernel()[3]
+        n_evals = K * n + int((stage != 1).sum())    # stage 2 where needed
+        n_bytes = 4 * (n * d + n + 3 * K * n * d + 4 * K * n + d * d + d
+                       + 2 * K * n) + K * n
+        n_ops = n_evals * (2 * d * d + 3 * d) + 2 * K * n * d + 30 * K * n
+        return times, n_bytes, n_ops
+
+    times, n_bytes, n_ops = timed(256, 100, 50)
+    wide = kernel_record("fused_rw_chunk", "", "", None, times, n_bytes,
+                         n_ops)
+    times, n_bytes, n_ops = timed(1, 2, C1_K)
+    rec = kernel_record(
+        "fused_rw_chunk", "bipymc_tpu_torch/csrc/fused_rw_chunk.cu",
+        "bipymc_tpu/ops/fused_rw_chunk.py:148",
+        errs[(1, 2, 50, "gaussian", True)], times, n_bytes, n_ops)
+    rec["wide_shape"] = {k: wide[k] for k in (
+        "ms", "plain_ms", "call_ms", "plain_call_ms", "bound_ms",
+        "bound_by")}
+    rec["wide_shape"]["shape"] = "K=50 n=256 d=100, DR, correlated Gaussian"
+    rec["wide_shape"]["max_abs_err"] = errs[(256, 100, 50, "gaussian", True)]
+    return rec
+
+
+# ---------------------------------------------------------------- phase 5
+def config1_path(dev):
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.fused_rw_chunk import fused_rw_chunk
+    from bipymc_tpu_torch.samplers import rw
+
+    lp = bt.correlated_gaussian(C1_MEAN, C1_COV)
+    s = bt.Dram(lp, seed=1, n_chains=1, fused=True, device=dev)
+    n = C1_STEPS
+    fused_rw_chunk.launches = 0
+    t0 = time.perf_counter()
+    s.run_mcmc(n, np.zeros(2), cov_est=np.eye(2))
+    first_s = time.perf_counter() - t0
+    s.run_mcmc(n)
+    t0 = time.perf_counter()
+    s.run_mcmc(n)
+    elapsed = time.perf_counter() - t0
+    launches = fused_rw_chunk.launches
+    if launches != 3 * n // C1_K:
+        raise AssertionError(f"B4 launched {launches} times in {3 * n} "
+                             f"steps, not {3 * n // C1_K}")
+    kept = s.get_chain(discard=2 * n + n // 4)
+    if kept.shape != (1, n - n // 4, 2) or not np.all(np.isfinite(kept)):
+        raise AssertionError(f"history: shape {kept.shape} or non-finite")
+    ess, ess_per_sec = bt.ess_rate(kept, n / elapsed)
+    draws = s.get_chain(discard=n // 4, flat=True)
+    mean, cov = draws.mean(0), np.cov(draws.T)
+    result = {"steps_per_sec": n / elapsed, "ess_window": ess,
+              "ess_per_sec": ess_per_sec,
+              "acceptance": float(np.mean(s.acceptance_fraction)),
+              "mean": mean.tolist(), "cov": cov.tolist(),
+              "first_run_s": first_s, "timed_s": elapsed,
+              "launches": {"fused_rw_chunk": launches}}
+    log("config 1:", json.dumps(result))
+    if not (np.all(np.abs(mean - np.array(C1_MEAN)) < 0.15)
+            and np.all(np.abs(cov - np.array(C1_COV)) < 0.3)):
+        raise AssertionError(f"config 1 posterior off the truth: mean "
+                             f"{mean.tolist()}, cov {cov.tolist()}")
+    wall_us = busy_share(s, n_units=10, per_unit=C1_K, unit="chunk")
+
+    # the Welford replay and refresh of one chunk, alone
+    st = s.final_state
+    xh = st.theta.expand(C1_K, 1, 2).contiguous()
+
+    def replay():
+        mean_, m2, count = st.mean, st.m2, st.count
+        for k in range(C1_K):
+            mean_, m2, count = rw.welford(mean_, m2, count, xh[k])
+        return rw.refresh(s.cfg, rw.proposal_scale(s.cfg, 2), m2, count,
+                          st.chol)
+
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        replay()
+    torch.cuda.synchronize()
+    replay_us = (time.perf_counter() - t0) / 20 * 1e6
+    log("welford replay:", json.dumps({
+        "us_per_chunk": replay_us, "chunk_wall_us": wall_us,
+        "share_of_chunk": replay_us / wall_us}))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+def rw_rhat_stop(dev):
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.fused_rw_chunk import fused_rw_chunk
+
+    lp = bt.correlated_gaussian(C1_MEAN, C1_COV)
+    s = bt.Dram(lp, seed=1, n_chains=4, fused=True, t0=60,
+                adapt_interval=20, device=dev)
+    kw = dict(cov_est=0.5 * np.eye(2), rhat_tol=1.1, chunk=40,
+              max_chunks=50)
+    fused_rw_chunk.launches = 0
+    warm = s.run_mcmc_until(np.zeros(2), **kw)
+    s.reset()
+    t0 = time.perf_counter()
+    info = s.run_mcmc_until(np.zeros(2), **kw)
+    wall = time.perf_counter() - t0
+    steps, rhat = int(info["steps"]), float(np.max(info["rhat"]))
+    n_chunks = (int(warm["steps"]) + steps) // 20
+    log("rw rhat stop:", json.dumps({
+        "wall_s": wall, "steps": steps, "rhat_max": rhat,
+        "launches": {"fused_rw_chunk": fused_rw_chunk.launches}}))
+    if fused_rw_chunk.launches != n_chunks:
+        raise AssertionError(f"R-hat runs: B4 launched "
+                             f"{fused_rw_chunk.launches} times in "
+                             f"{n_chunks} fused chunks")
+    if not rhat < 1.1:
+        raise AssertionError(f"R-hat stop not reached: max R-hat {rhat}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -386,10 +604,12 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    records = [check_b3(dev), check_b2(dev)]
+    records = [check_b3(dev), check_b2(dev), check_b4(dev)]
     launch_floor(dev)
     launches = main_path(dev)
     rhat_stop(dev)
+    launches["fused_rw_chunk"] = config1_path(dev)
+    rw_rhat_stop(dev)
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(math.isfinite(r["ms"]) for r in records):

@@ -9,7 +9,10 @@ machine with the card and no JAX:
 (``--noconftest`` skips tests/conftest.py, which sets JAX up.) B3 must be
 bit-equal to its plain version; B2 is held within x_star rtol 1e-5 /
 atol 1e-6 and log_jac rtol 1e-5 / atol 1e-4 (tests/
-test_torch_dream_proposal.py gives the reasons). The unmarked tests run
+test_torch_dream_proposal.py gives the reasons). B4 must take the same
+accept decisions and stages as its plain version, with positions and
+logp within rtol 1e-5 / atol 1e-6 (the kernel sums over d in another
+order). The unmarked tests run
 everywhere: a tensor on a device with no kernel raises rather than
 taking the plain version.
 """
@@ -23,7 +26,9 @@ from bipymc_tpu_torch.core.rng import draw_words
 from bipymc_tpu_torch.ensemble.indices import distinct_from_bits
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
-from bipymc_tpu_torch.samplers import dream
+from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
+                                                 fused_rw_chunk_plain)
+from bipymc_tpu_torch.samplers import dream, rw
 
 torch.set_num_threads(2)
 
@@ -157,3 +162,117 @@ def test_dreamzs_on_card_launches_both_kernels(cuda):
     with pytest.raises(ValueError, match="pallas_proposal"):
         bt.DreamZs(bt.gaussian_mixture(means), n_chains=32,
                    pallas_proposal=False).run_mcmc(5, np.zeros(8))
+
+
+# ---- kernel B4: fused_rw_chunk ---------------------------------------------
+
+def _b4_target(kind, d):
+    rng = np.random.default_rng(d)
+    if kind == "gaussian":
+        a = rng.standard_normal((d, d))
+        return bt.correlated_gaussian(rng.standard_normal(d),
+                                      a @ a.T / d + np.eye(d))
+    return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
+
+
+def _b4_operands(n, d, K, seed, device):
+    rng = np.random.default_rng(seed)
+    isk = float(np.float32(1.0) / np.sqrt(np.float32(5.0)))
+    step = 2.4 / np.sqrt(d)
+    z1 = rng.standard_normal((K, n, d))
+    z2 = rng.standard_normal((K, n, d))
+    u = rng.uniform(1e-7, 1.0, (2, K, n))
+    w = z1 - isk * z2
+    scal = np.stack([np.sum(z1 ** 2, -1), np.sum(w ** 2, -1), np.log(u[0]),
+                     np.log(u[1])], -1)
+    x0 = rng.standard_normal((n, d))
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        device) for a in (x0, step * z1, isk * step * z2, scal)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,K", [(1, 2, 50), (4, 2, 20), (37, 129, 7),
+                                   (256, 100, 50)])
+@pytest.mark.parametrize("kind", ["gaussian", "mixture"])
+@pytest.mark.parametrize("delayed", [False, True])
+def test_b4_kernel_matches_plain(cuda, n, d, K, kind, delayed):
+    lp = _b4_target(kind, d)
+    x0, dy1, dy2, scal = _b4_operands(n, d, K, seed=n + d + K, device=cuda)
+    lp0 = lp(x0)
+    dy2 = dy2 if delayed else None
+    before = fused_rw_chunk.launches
+    out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed)
+    torch.cuda.synchronize()
+    assert fused_rw_chunk.launches == before + 1
+    ref = fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp, delayed)
+    assert torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
+    torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_b4_rejects_a_nonfinite_proposal(cuda):
+    lp = _b4_target("gaussian", 2)
+    x0, dy1, dy2, scal = _b4_operands(8, 2, 20, seed=3, device=cuda)
+    dy1[5, 3] = torch.inf
+    lp0 = lp(x0)
+    out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True)
+    ref = fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[3], ref[3]) and int(out[3][5, 3]) != 1
+    assert bool(torch.all(torch.isfinite(out[0])))
+
+
+@pytest.mark.cuda
+def test_b4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    lp = _b4_target("gaussian", 2)
+    x0, dy1, dy2, scal = _b4_operands(4, 2, 5, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="kernel form"):
+        fused_rw_chunk(x0, lp(x0), dy1, dy2, scal,
+                       lambda x: -torch.sum(x ** 2, -1), True)
+    with pytest.raises(TypeError):
+        fused_rw_chunk(x0.double(), lp(x0).double(), dy1.double(),
+                       dy2.double(), scal.double(), lp, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rw_chunk(x0, lp(x0), dy1.transpose(0, 1).contiguous()
+                       .transpose(0, 1), dy2, scal, lp, True)
+
+
+@pytest.mark.cuda
+def test_dram_fused_on_card_launches_b4_once_per_chunk(cuda):
+    lp = bt.correlated_gaussian([1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]])
+    s = bt.Dram(lp, seed=1, n_chains=4, fused=True, t0=60,
+                adapt_interval=20)
+    before = fused_rw_chunk.launches
+    s.run_mcmc(130, np.zeros(2), cov_est=np.eye(2))     # 6 chunks + 10
+    s.run_mcmc(130)                                      # 10 + 6 chunks
+    assert fused_rw_chunk.launches - before == 12
+    assert s.get_chain().shape == (4, 260, 2)
+    assert np.all(np.isfinite(s.get_chain()))
+    assert 0.2 < float(np.mean(s.acceptance_fraction)) < 0.95
+
+
+@pytest.mark.cuda
+def test_rw_step_on_card_matches_step_on_cpu(cuda):
+    n, d, T = 8, 2, 100
+    lp = bt.correlated_gaussian([1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]])
+    cfg = rw.dram_config(t0=40, adapt_interval=20)
+    rng = np.random.default_rng(0)
+    tables = [rng.standard_normal((T, n, d)), rng.standard_normal((T, n, d)),
+              rng.uniform(1e-7, 1, (T, n)), rng.uniform(1e-7, 1, (T, n))]
+    tables = [torch.from_numpy(a.astype(np.float32)) for a in tables]
+    on = {dev: [a.to(dev) for a in tables] for dev in ("cpu", cuda)}
+    states, steps = {}, {}
+    for dev in ("cpu", cuda):
+        steps[dev] = rw.make_step(lp, cfg, draws_fn=lambda w, ts, d_, dt,
+                                  _t=on[dev]: tuple(a[ts] for a in _t))
+        states[dev] = rw.init(torch.zeros((n, d), device=dev), lp,
+                              torch.eye(2, device=dev))
+    for t in range(T):
+        infos = {}
+        for dev in ("cpu", cuda):
+            states[dev], infos[dev] = steps[dev](states[dev], None, t)
+        assert torch.equal(infos[cuda].accepted.cpu(),
+                           infos["cpu"].accepted), t
+    torch.testing.assert_close(states[cuda].theta.cpu(), states["cpu"].theta,
+                               rtol=1e-5, atol=1e-5)
