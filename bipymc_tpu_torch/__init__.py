@@ -17,6 +17,11 @@ sampler families are ported:
   per launch of ``ops/fused_rw_chunk.py`` (B4), which evaluates the
   built-in targets ``correlated_gaussian`` and ``gaussian_mixture`` in
   device code.
+- GP regression (``GpRegressor``: fit, predict and the log marginal
+  likelihood, batched over chains), whose Gram matrices go through
+  ``ops/pallas_kernels.py`` (B5) and whose batched factor-and-solve goes
+  through ``ops/pallas_bchol.py`` (B6). BASELINE config 4 is ``Dram``
+  over a batched GP log-ML.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
 device::
@@ -30,8 +35,19 @@ device::
     lp = bt.correlated_gaussian([1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]])
     s = bt.Dram(lp, seed=1, n_chains=1, fused=True)
     s.run_mcmc(20000, [0.0, 0.0], cov_est=np.eye(2))
+
+    gp = bt.GpRegressor()
+    def log_post(theta):                                  # [64, 4] → [64]
+        p = {"log_lengthscale": theta[:, :2], "log_sigma_f": theta[:, 2],
+             "log_sigma_n": theta[:, 3]}
+        lml = gp.log_marginal_likelihood(p, x, y)         # x [512, 2]
+        return lml - 0.5 * ((theta / 2) ** 2).sum(-1)
+    s = bt.Dram(log_post, seed=1, n_chains=64)
+    s.run_mcmc(2000, np.zeros(4), cov_est=0.05 * np.eye(4))
 """
 
+from bipymc_tpu_torch.gp import (GpFit, GpRegressor, matern32, matern52,
+                                 squared_exp)
 from bipymc_tpu_torch.models.targets import (baseline_config3_means,
                                              correlated_gaussian,
                                              gaussian_mixture,
@@ -49,6 +65,8 @@ __all__ = [
     "DrMetropolis",
     "Dram",
     "DreamZs",
+    "GpFit",
+    "GpRegressor",
     "McmcSampler",
     "Metropolis",
     "baseline_config3_means",
@@ -57,7 +75,10 @@ __all__ = [
     "ess_rate",
     "gaussian_mixture",
     "gelman_rubin",
+    "matern32",
+    "matern52",
     "mode_occupancy",
+    "squared_exp",
     "stratified_mode_init",
     "var_ball",
 ]

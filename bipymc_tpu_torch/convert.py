@@ -5,13 +5,15 @@ A JAX ``DreamState`` flattened with ``np.asarray`` under its field names
 ``cr_p``, ``cr_cum``, ``cr_jump``, ``cr_count``, ``logp_sum``, ``gen``)
 becomes the port's state and back, so both packages can start from, and
 be compared at, the same state. The same holds for the random-walk
-family's batched ``RwState``. Nothing here imports JAX.
+family's batched ``RwState``, and for the GP's params dict and
+``GpFit``. Nothing here imports JAX.
 """
 
 import numpy as np
 import torch
 
 from bipymc_tpu_torch.ensemble.archive import Archive
+from bipymc_tpu_torch.gp.regressor import GpFit
 from bipymc_tpu_torch.samplers.dream import DreamState
 from bipymc_tpu_torch.samplers.rw import RwState
 
@@ -68,3 +70,19 @@ def rw_state_to_numpy(state: RwState) -> dict:
            for name in _RW_TENSORS}
     out["count"] = np.full(state.theta.shape[0], state.count, np.int32)
     return out
+
+
+def gp_params(params: dict, device) -> dict:
+    """The JAX package's GP params (``log_lengthscale``, ``log_sigma_f``,
+    ``log_sigma_n``, as arrays of any leading shape) → the port's dict of
+    tensors on ``device`` (copies, in the arrays' own dtype)."""
+    return {name: torch.as_tensor(np.array(v), device=device)
+            for name, v in params.items()}
+
+
+def gp_fit(fit, device) -> GpFit:
+    """A JAX ``GpFit`` (or any object with its fields) → the port's."""
+    return GpFit(params=gp_params(fit.params, device),
+                 **{name: torch.as_tensor(np.array(getattr(fit, name)),
+                                          device=device)
+                    for name in GpFit._fields if name != "params"})

@@ -8,7 +8,7 @@ block with :func:`draw_words`: DREAM-zs from one running generator
 by (key, step) (:class:`StepWords`), so its words do not depend on which
 engine runs a step. Only the word→number conversions must agree with
 the JAX package, and they do: :func:`bits_to_uniform` bit for bit,
-:func:`uniform_to_normal` up to the two libraries' inverse-erf.
+:func:`uniform_to_normal` up to XLA's float32 inverse-erf.
 
 Words are carried as **int32 bit patterns**: the same 32 bits as the JAX
 ``uint32`` word, read through a signed type because torch's ``uint32``
@@ -16,8 +16,6 @@ supports few operations. ``np.asarray(jax_words).view(np.int32)`` turns a
 JAX block into the port's form, and the CUDA kernels read the buffer as
 ``uint32`` directly.
 """
-
-import math
 
 import numpy as np
 import torch
@@ -54,15 +52,21 @@ def uniform_to_normal(u: torch.Tensor, dtype=None) -> torch.Tensor:
     """U[0, 1) floats → standard normals, √2·erf⁻¹(2u − 1).
 
     ``2u − 1`` is clamped one machine epsilon above −1 in ``u``'s dtype,
-    bounding the tail as ``jax.random.normal`` does. torch's ``erfinv``
-    and ``jax.lax.erf_inv`` are different float32 approximations; they
-    agree to a few float32 ulps (tests/test_torch_rng.py states the
-    tolerance).
+    bounding the tail as ``jax.random.normal`` does. The inverse is then
+    taken in float64 as Φ⁻¹((v + 1)/2) (``torch.special.ndtri``, the
+    Cephes rational approximation in ATen's own code) and rounded once,
+    so a float32 result is within half an ulp of the exact value. torch's
+    float32 ``erfinv`` is not used: on CPU it goes through MKL's vector
+    math library in chunks spread over threads, and in one multi-worker
+    test run it returned values up to 7.5e-5 from the exact ones in the
+    second half of a 4096-element buffer (the cause was not pinned down).
+    ``jax.lax.erf_inv`` is a coarser float32 approximation, within 5e-5 of
+    the exact value (tests/test_torch_rng.py states both bounds).
     """
     lo = -1.0 + torch.finfo(u.dtype).eps
     v = (2.0 * u - 1.0).clamp_min(lo)
-    n = math.sqrt(2.0) * torch.special.erfinv(v)
-    return n if dtype is None else n.to(dtype)
+    n = torch.special.ndtri(0.5 * v.to(torch.float64) + 0.5)
+    return n.to(u.dtype if dtype is None else dtype)
 
 
 def running_words(gen: torch.Generator):

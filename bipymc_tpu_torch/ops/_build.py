@@ -43,6 +43,8 @@ SIGNATURES = {
     "fused_rw_chunk": ("fused_rw_chunk_launch",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                         _F, _F, _I, _P, _P, _P, _P, _P]),
+    "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
 }
 
 

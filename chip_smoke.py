@@ -28,6 +28,21 @@ non-zero:
    Accept decisions and stages exactly equal, x and logp within rtol
    1e-5 / atol 1e-6. Timed at the config-1 shape (the kernels line) and
    at the wide shape.
+2c. B5 (``sqdist``) and B6 (``bchol``: ``cholesky_batched`` and
+   ``cholesky_solve_batched``) against their plain versions on the card:
+   B5 at config 4's [64, 512, 2] x [64, 512, 2] and at odd shapes within
+   atol 1e-3; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
+   (5, 200), (12, 256), (8, 1000)}, L within atol 5e-6·max|L| and z
+   within atol 1e-5·max|z|, L bit-equal between the two entry points, and
+   a batch with a matrix that is not positive definite: NaN in the same
+   matrices on both sides. B6 also on config 4's own Gram matrices
+   (``GpRegressor._gram`` at 64 θ from phase 7's start to where its
+   chains end), where both float32 routes are held to a float64 factor:
+   the kernel within 1.5 x the plain version's distance from it, and
+   within ``GRAM_TOL`` of it and of the plain version. Both kernels timed
+   at config 4's shapes on the device clock, with a library call beside
+   them (``torch.cdist``, distances; ``torch.linalg.cholesky_ex``, L
+   alone, beside the kernel's L alone).
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -48,7 +63,15 @@ non-zero:
 6. The R̂ stop on the fused RW path: ``Dram(fused=True)``, 4 chains,
    ``run_mcmc_until`` to R̂ < 1.1, one warm call, ``reset()``, one timed
    call; B4 must have launched once per fused chunk of the two calls.
-7. One JSON line of the kernels, the card's line, and the result line.
+7. BASELINE config 4 at full width as ``benchmarks/run_all.py`` runs it:
+   ``Dram(seed=1, n_chains=64)`` over the GP log-ML of 512 points in 2-d
+   plus a Gaussian prior, 2,000 steps from 0 with ``cov_est = 0.05 I``,
+   then a timed continuation of 2,000. B5 and B6 must each have launched
+   1 + 2 x 2,000 times in the first run and 2 x 2,000 in the timed one;
+   every final logp must be finite, and the card's log-ML at 4 of the
+   final θ must be within rtol 1e-4 of a float64 NumPy log-ML. Then 50
+   steps timed alone and under the profiler.
+8. One JSON line of the kernels, the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -250,7 +273,8 @@ def check_b2(dev):
         n_ops)
 
 
-def kernel_record(name, source, replaces, err, times, n_bytes, n_ops):
+def kernel_record(name, source, replaces, err, times, n_bytes, n_ops,
+                  library_ms=None):
     ms, plain_ms, k_call, p_call = times
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -263,7 +287,7 @@ def kernel_record(name, source, replaces, err, times, n_bytes, n_ops):
             "ms": ms, "plain_ms": plain_ms, "call_ms": k_call,
             "plain_call_ms": p_call, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def launch_floor(dev):
@@ -577,6 +601,322 @@ def rw_rhat_stop(dev):
         raise AssertionError(f"R-hat stop not reached: max R-hat {rhat}")
 
 
+# ---------------------------------------------------------------- phase 2c
+C4_CHAINS, C4_N = 64, 512
+
+
+def config4_data():
+    """Config 4's training set, as ``benchmarks/run_all.py:298-303``
+    makes it."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-4, 4, (C4_N, 2)).astype(np.float32)
+    f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1])
+    y = (f + rng.normal(0, 0.2, C4_N)).astype(np.float32)
+    return x, y
+
+
+def b5_operands(c, n, m, k, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = 3.0 * torch.randn((c, n, k), generator=g, device=dev)
+    B = 3.0 * torch.randn((c, m, k), generator=g, device=dev)
+    return A, B
+
+
+def check_b5(dev):
+    from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
+
+    # config 4: each chain's inputs scaled by its length-scales, centred
+    x, _ = config4_data()
+    g = torch.Generator(device=dev).manual_seed(5)
+    ls = torch.exp(0.3 * torch.randn((C4_CHAINS, 1, 2), generator=g,
+                                     device=dev))
+    xs = torch.as_tensor(x, device=dev) / ls
+    xs = xs - xs.mean(-2, keepdim=True)
+    cases = [("config 4", xs, xs)]
+    for c, n, m, k in ((1, 130, 140, 5), (3, 17, 9, 4), (2, 1000, 200, 33),
+                       (5, 64, 64, 1), (7, 33, 300, 2)):
+        A, B = b5_operands(c, n, m, k, seed=n + m + k, dev=dev)
+        cases.append((f"c={c} n={n} m={m} k={k}", A, B))
+    A, B = b5_operands(1, 40, 50, 3, seed=1, dev=dev)
+    cases.append(("unbatched [40, 3] x [50, 3]", A[0], B[0]))
+    A, B = b5_operands(2, 40, 50, 3, seed=2, dev=dev)
+    A[1, 7, 0] = torch.nan
+    cases.append(("a NaN input row", A, B))
+    errs = []
+    for label, A, B in cases:
+        out, ref = sqdist(A, B), sqdist_plain(A, B)
+        torch.cuda.synchronize()
+        same_nan = torch.equal(torch.isnan(out), torch.isnan(ref))
+        ok = torch.isfinite(ref)
+        err = float((out[ok] - ref[ok]).abs().max()) if ok.any() else 0.0
+        if not (same_nan and out.shape == ref.shape and err <= 1e-3):
+            raise AssertionError(f"B5 differs from its plain version at "
+                                 f"{label}: max |d| {err:.3g}, NaN in the "
+                                 f"same places {same_nan}")
+        errs.append(err)
+    main_err = errs[0]
+    log(f"B5 sqdist: within atol 1e-3 of the plain version in {len(cases)} "
+        f"cases; config-4 max abs error {main_err:.3g}")
+
+    kernel = lambda: sqdist(xs, xs)
+    plain = lambda: sqdist_plain(xs, xs)
+    library = lambda: torch.cdist(xs, xs)
+    times = (device_ms(kernel), device_ms(plain), call_ms(kernel),
+             call_ms(plain))
+    c, n, k = C4_CHAINS, C4_N, 2
+    n_bytes = 4 * (2 * c * n * k + c * n * n)
+    n_ops = c * n * n * (2 * k + 3) + 2 * c * 2 * n * k
+    return kernel_record(
+        "sqdist", "bipymc_tpu_torch/csrc/sqdist.cu",
+        "bipymc_tpu/ops/pallas_kernels.py:73", main_err, times, n_bytes,
+        n_ops, library_ms=device_ms(library))
+
+
+def spd_batch(b, n, seed, dev):
+    """SPD test matrices as ``tests/test_pallas_bchol.py`` makes them:
+    x xᵀ/24 + 3I with x [b, n, 24], and y [b, n]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, 24), generator=g, device=dev)
+    a = x @ x.transpose(-1, -2) / 24 + 3 * torch.eye(n, device=dev)
+    return a, torch.randn((b, n), generator=g, device=dev)
+
+
+# about where phase 7's chains end (its posterior mean)
+C4_THETA_END = (-0.18, 0.45, -0.26, -1.57)
+GRAM_TOL = (1e-5, 1e-4)       # max|dL|/max|L|, max|dz|/max|z| per matrix
+
+
+def config4_grams(dev):
+    """Config 4's Gram matrices as phase 7 factors them:
+    ``GpRegressor._gram`` (B5 inside) over the config-4 data at 64 θ spread
+    from phase 7's start, 0, to where its chains end, each moved by
+    N(0, 0.3²) per coordinate; and y [64, 512]."""
+    import bipymc_tpu_torch as bt
+
+    x, y = config4_data()
+    rng = np.random.default_rng(11)
+    theta = (np.linspace(0.0, 1.0, C4_CHAINS)[:, None]
+             * np.array(C4_THETA_END)
+             + 0.3 * rng.standard_normal((C4_CHAINS, 4)))
+    t = torch.as_tensor(theta.astype(np.float32), device=dev)
+    gp = bt.GpRegressor(device=dev)
+    p = {"log_lengthscale": t[:, 0:2], "log_sigma_f": t[:, 2],
+         "log_sigma_n": t[:, 3]}
+    a = gp._gram(p, torch.as_tensor(x, device=dev))
+    yn = gp._normalize(torch.as_tensor(y, device=dev))[0]
+    return a, yn.expand(C4_CHAINS, C4_N).contiguous()
+
+
+def rel_errors(L, z, L_ref, z_ref):
+    """max |L − L_ref| / max |L_ref| and the same of z, each per matrix,
+    the largest over the batch."""
+    def worst(u, v):
+        u, v = u.double().flatten(1), v.double().flatten(1)
+        return float(((u - v).abs().amax(1) / v.abs().amax(1)).max())
+    return worst(L, L_ref), worst(z, z_ref)
+
+
+def check_b6_gram(dev):
+    """B6 and its plain version on config 4's Gram matrices, each against
+    a float64 factor of the same float32 matrices."""
+    from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_solve_batched,
+                                                   cholesky_solve_plain)
+
+    a, y = config4_grams(dev)
+    L, z = cholesky_solve_batched(a, y)
+    L_p, z_p = cholesky_solve_plain(a, y)
+    L64, info = torch.linalg.cholesky_ex(a.double())
+    if bool(torch.any(info != 0)):
+        raise AssertionError("a config-4 Gram matrix is not positive "
+                             "definite in float64")
+    z64 = torch.linalg.solve_triangular(L64, y.double()[..., None],
+                                        upper=False)[..., 0]
+    ev = torch.linalg.eigvalsh(a.double())
+    cond = (ev[:, -1] / ev[:, 0]).cpu().numpy()
+    k_l, k_z = rel_errors(L, z, L64, z64)
+    p_l, p_z = rel_errors(L_p, z_p, L64, z64)
+    d_l, d_z = rel_errors(L, z, L_p, z_p)
+    readings = {"cond_min": float(cond.min()),
+                "cond_median": float(np.median(cond)),
+                "cond_max": float(cond.max()),
+                "kernel_vs_f64": [k_l, k_z], "plain_vs_f64": [p_l, p_z],
+                "kernel_vs_plain": [d_l, d_z]}
+    log("B6 on config-4 Gram matrices, the batch's worst max|dL|/max|L| "
+        "and max|dz|/max|z|:", json.dumps(readings))
+    # Both float32 routes stand ~cond·ε from the float64 factor, so the
+    # SPD cases' 1e-5 z bound between them does not hold here. The limits:
+    # the kernel no further from float64 than 1.5 x the plain version,
+    # and within GRAM_TOL (L, z) of float64 and of the plain version.
+    ok = (k_l <= 1.5 * p_l and k_z <= 1.5 * p_z
+          and max(k_l, d_l) <= GRAM_TOL[0] and max(k_z, d_z) <= GRAM_TOL[1])
+    if not ok:
+        raise AssertionError(f"B6 on config-4 Gram matrices is off: "
+                             f"{readings}, limits {GRAM_TOL} and 1.5 x the "
+                             f"plain version's distance from float64")
+    return readings
+
+
+def check_b6(dev):
+    from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
+                                                   cholesky_solve_batched,
+                                                   cholesky_solve_plain)
+
+    cases = [(C4_CHAINS, C4_N, False), (3, 64, False), (5, 200, False),
+             (12, 256, False), (8, 1000, False), (8, 128, True)]
+    errs = {}
+    for i, (b, n, non_pd) in enumerate(cases):
+        a, y = spd_batch(b, n, seed=i, dev=dev)
+        if non_pd:                     # matrices 2 and 5: indefinite
+            a[2] -= 10.0 * torch.eye(n, device=dev)
+            a[5, n // 2, n // 2] = -1.0
+        L, z = cholesky_solve_batched(a, y)
+        L_only = cholesky_batched(a)
+        L_ref, z_ref = cholesky_solve_plain(a, y)
+        torch.cuda.synchronize()
+        bad = torch.isnan(L).flatten(1).any(1)
+        bad_ref = torch.isnan(L_ref).flatten(1).any(1)
+        good = ~bad_ref
+        e_l = float((L[good] - L_ref[good]).abs().max())
+        e_z = float((z[good] - z_ref[good]).abs().max())
+        s_l = float(L_ref[good].abs().max())
+        s_z = float(z_ref[good].abs().max())
+        ok = (torch.equal(bad, bad_ref)
+              and bool(torch.isnan(L[bad]).all())
+              and bool(torch.isnan(z[bad]).all())
+              and torch.equal(L.nan_to_num(), L_only.nan_to_num())
+              and torch.equal(torch.isnan(L), torch.isnan(L_only))
+              and e_l <= 5e-6 * s_l and e_z <= 1e-5 * s_z
+              and bool(torch.all(torch.triu(L[good], 1) == 0)))
+        if non_pd and bad.tolist() != [j in (2, 5) for j in range(b)]:
+            ok = False
+        if not ok:
+            raise AssertionError(
+                f"B6 differs from its plain version at b={b} n={n} "
+                f"non_pd={non_pd}: max |dL| {e_l:.3g} (bound "
+                f"{5e-6 * s_l:.3g}), max |dz| {e_z:.3g} (bound "
+                f"{1e-5 * s_z:.3g}), NaN matrices {bad.tolist()} vs "
+                f"{bad_ref.tolist()}, L of the two entry points bit-equal "
+                f"{torch.equal(L.nan_to_num(), L_only.nan_to_num())}")
+        errs[(b, n)] = max(e_l, e_z)
+    log(f"B6 bchol: L within 5e-6·max|L| and z within 1e-5·max|z| of the "
+        f"plain version, L bit-equal between its two entry points, NaN in "
+        f"the same matrices, in {len(cases)} cases")
+    check_b6_gram(dev)
+
+    a, y = spd_batch(C4_CHAINS, C4_N, seed=99, dev=dev)
+    kernel = lambda: cholesky_solve_batched(a, y)
+    plain = lambda: cholesky_solve_plain(a, y)
+    # the one library call of the two: L alone, beside the kernel's L alone
+    library = lambda: torch.linalg.cholesky_ex(a)
+    times = (device_ms(kernel, reps=50, warmup=5),
+             device_ms(plain, reps=50, warmup=5),
+             call_ms(kernel, reps=100, warmup=5),
+             call_ms(plain, reps=100, warmup=5))
+    library_ms = device_ms(library, reps=50, warmup=5)
+    log(f"B6 L alone, device ms per call: kernel "
+        f"{device_ms(lambda: cholesky_batched(a), reps=50, warmup=5):.6f}, "
+        f"torch.linalg.cholesky_ex {library_ms:.6f}")
+    b, n = C4_CHAINS, C4_N
+    n_bytes = 4 * (2 * b * n * n + 2 * b * n)   # a in, L out, y in, z out
+    n_ops = b * (2 * n ** 3 // 3 + 2 * n * n)   # factor + forward solve
+    return kernel_record(
+        "bchol", "bipymc_tpu_torch/csrc/bchol.cu",
+        "bipymc_tpu/ops/pallas_bchol.py:274", errs[(b, n)], times, n_bytes,
+        n_ops, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------- phase 7
+C4_STEPS = 2000
+
+
+def np_log_ml(theta, x, y):
+    """The GP log-ML in float64 NumPy (``benchmarks/run_all.py:329-340``,
+    with the port's jitter floor 4·n·ε_f32·σ_f² for its 1e-5·σ_f²)."""
+    x64, y64, t = (np.asarray(v, np.float64) for v in (x, y, theta))
+    n = len(y64)
+    ls, sf2, sn2 = np.exp(t[0:2]), np.exp(2.0 * t[2]), np.exp(2.0 * t[3])
+    sq = ((x64[:, None, :] - x64[None, :, :]) / ls) ** 2
+    jitter = 4 * n * float(np.finfo(np.float32).eps)
+    kmat = sf2 * np.exp(-0.5 * sq.sum(-1)) + (sn2 + jitter * sf2) * np.eye(n)
+    L = np.linalg.cholesky(kmat)
+    v = np.linalg.solve(L, y64)
+    return (-0.5 * v @ v - np.sum(np.log(np.diag(L)))
+            - 0.5 * n * np.log(2.0 * np.pi))
+
+
+def config4_path(dev):
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.pallas_bchol import cholesky_solve_batched
+    from bipymc_tpu_torch.ops.pallas_kernels import sqdist
+
+    x, y = config4_data()
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    gp = bt.GpRegressor(device=dev)
+
+    def params(theta):
+        return {"log_lengthscale": theta[:, 0:2], "log_sigma_f": theta[:, 2],
+                "log_sigma_n": theta[:, 3]}
+
+    def log_post(theta):
+        return (gp.log_marginal_likelihood(params(theta), xt, yt)
+                - 0.5 * torch.sum((theta / 2.0) ** 2, dim=-1))
+
+    n = C4_STEPS
+    s = bt.Dram(log_post, seed=1, n_chains=C4_CHAINS, device=dev)
+    sqdist.launches = cholesky_solve_batched.launches = 0
+    t0 = time.perf_counter()
+    s.run_mcmc(n, np.zeros(4), cov_est=np.eye(4) * 0.05)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = {"sqdist": sqdist.launches,
+             "bchol": cholesky_solve_batched.launches}
+    t0 = time.perf_counter()
+    s.run_mcmc(n)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"sqdist": sqdist.launches,
+                "bchol": cholesky_solve_batched.launches}
+    for name in launches:
+        if first[name] != 1 + 2 * n or launches[name] - first[name] != 2 * n:
+            raise AssertionError(
+                f"{name} launched {first[name]} times in the first {n} "
+                f"steps (want {1 + 2 * n}: the start and two DR stages a "
+                f"step) and {launches[name] - first[name]} in the timed "
+                f"{n} (want {2 * n})")
+
+    final = s.final_state
+    if not bool(torch.all(torch.isfinite(final.logp))):
+        raise AssertionError("a final logp is not finite")
+    kept = s.get_chain(discard=n + n // 4)
+    if kept.shape != (C4_CHAINS, n - n // 4, 4) or \
+            not np.all(np.isfinite(kept)):
+        raise AssertionError(f"history: shape {kept.shape} or non-finite")
+    steps_per_sec = n / elapsed
+    ess, ess_per_sec = bt.ess_rate(kept, steps_per_sec)
+    # the card's log-ML at the final θ (all 64, through B5 and B6) against
+    # float64 NumPy at four of them
+    lml = gp.log_marginal_likelihood(params(final.theta), xt, yt).cpu()
+    theta = final.theta.cpu().numpy()
+    picks = [0, 21, 42, 63]
+    ref = np.array([np_log_ml(theta[i], x, y) for i in picks])
+    rel = np.abs(lml.numpy()[picks] - ref) / np.abs(ref)
+    result = {
+        "steps_per_sec": steps_per_sec,
+        "cholesky_evals_per_sec": 2 * C4_CHAINS * steps_per_sec,
+        "ess_window": ess, "ess_per_sec": ess_per_sec,
+        "acceptance": float(np.mean(s.acceptance_fraction)),
+        "posterior_mean": kept.reshape(-1, 4).mean(0).tolist(),
+        "lml_card": lml.numpy()[picks].tolist(), "lml_f64": ref.tolist(),
+        "lml_rel_err": rel.tolist(), "first_run_s": first_s,
+        "timed_s": elapsed, "launches": launches}
+    log("config 4:", json.dumps(result))
+    if not (np.all(np.isfinite(lml.numpy())) and np.all(rel < 1e-4)):
+        raise AssertionError(f"config 4: the card's log-ML is off the "
+                             f"float64 one: relative errors {rel.tolist()}")
+    busy_share(s, n_units=50, per_unit=1, unit="step")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -604,12 +944,14 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    records = [check_b3(dev), check_b2(dev), check_b4(dev)]
+    records = [check_b3(dev), check_b2(dev), check_b4(dev), check_b5(dev),
+               check_b6(dev)]
     launch_floor(dev)
     launches = main_path(dev)
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)
+    launches.update(config4_path(dev))
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(math.isfinite(r["ms"]) for r in records):

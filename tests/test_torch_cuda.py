@@ -12,9 +12,17 @@ atol 1e-6 and log_jac rtol 1e-5 / atol 1e-4 (tests/
 test_torch_dream_proposal.py gives the reasons). B4 must take the same
 accept decisions and stages as its plain version, with positions and
 logp within rtol 1e-5 / atol 1e-6 (the kernel sums over d in another
-order). The unmarked tests run
-everywhere: a tensor on a device with no kernel raises rather than
-taking the plain version.
+order). B5 is held within atol 1e-3 of its plain version (tests/
+test_gp.py's bound for the reference's kernel), B6 within L atol
+5e-6·max|L| and z atol 1e-5·max|z| (tests/test_pallas_bchol.py's), with
+NaN in the same matrices and L bit-equal between its two entry points.
+On config 4's Gram matrices, where both float32 routes stand ~cond·ε
+from a float64 factor, B6 is held to that factor: within 1.5 x the plain
+version's distance from it, and within 1e-5 (L) and 1e-4 (z), per matrix
+relative to its max, of it and of the plain version (chip_smoke.py's
+GRAM_TOL).
+The unmarked tests run everywhere: a tensor on a device with no kernel
+raises rather than taking the plain version.
 """
 
 import numpy as np
@@ -28,6 +36,10 @@ from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
+from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
+                                               cholesky_solve_batched,
+                                               cholesky_solve_plain)
+from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
 from bipymc_tpu_torch.samplers import dream, rw
 
 torch.set_num_threads(2)
@@ -276,3 +288,159 @@ def test_rw_step_on_card_matches_step_on_cpu(cuda):
                            infos["cpu"].accepted), t
     torch.testing.assert_close(states[cuda].theta.cpu(), states["cpu"].theta,
                                rtol=1e-5, atol=1e-5)
+
+
+# ---- kernels B5 and B6: sqdist and the batched Cholesky --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,m,k", [(64, 512, 512, 2), (1, 130, 140, 5),
+                                     (3, 17, 9, 4), (2, 1000, 200, 33)])
+def test_b5_kernel_matches_plain(cuda, c, n, m, k):
+    rng = np.random.default_rng(n + m + k)
+    A = torch.from_numpy(3 * rng.standard_normal((c, n, k)).astype(
+        np.float32)).to(cuda)
+    B = torch.from_numpy(3 * rng.standard_normal((c, m, k)).astype(
+        np.float32)).to(cuda)
+    before = sqdist.launches
+    out = sqdist(A, B)
+    one = sqdist(A[0], B[0])
+    torch.cuda.synchronize()
+    assert sqdist.launches == before + 2
+    ref = sqdist_plain(A, B)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-3)
+    torch.testing.assert_close(one, ref[0], rtol=0, atol=1e-3)
+    assert bool(torch.all(out >= 0))
+
+
+def _spd(b, n, seed):
+    x = np.random.default_rng(seed).standard_normal((b, n, 24))
+    a = x @ np.swapaxes(x, -1, -2) / 24 + 3 * np.eye(n)
+    y = np.random.default_rng(seed + 1).standard_normal((b, n))
+    return [torch.from_numpy(v.astype(np.float32)) for v in (a, y)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(64, 512), (3, 64), (5, 200), (12, 256),
+                                 (8, 1000), (2, 33)])
+def test_b6_kernel_matches_plain(cuda, b, n):
+    a, y = (v.to(cuda) for v in _spd(b, n, seed=n + b))
+    before = cholesky_solve_batched.launches
+    L, z = cholesky_solve_batched(a, y)
+    L_only = cholesky_batched(a)
+    torch.cuda.synchronize()
+    assert cholesky_solve_batched.launches == before + 2
+    L_ref, z_ref = cholesky_solve_plain(a, y)
+    assert torch.equal(L, L_only)
+    torch.testing.assert_close(L, L_ref, rtol=0,
+                               atol=5e-6 * float(L_ref.abs().max()))
+    torch.testing.assert_close(z, z_ref, rtol=0,
+                               atol=1e-5 * float(z_ref.abs().max()))
+    assert bool(torch.all(torch.triu(L, 1) == 0))
+
+
+@pytest.mark.cuda
+def test_b6_on_config4_gram_matrices_is_as_close_to_float64_as_plain(cuda):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(-4, 4, (512, 2)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((64, 512)).astype(
+        np.float32)).to(cuda)
+    theta = (np.linspace(0, 1, 64)[:, None] * [-0.18, 0.45, -0.26, -1.57]
+             + 0.3 * rng.standard_normal((64, 4)))
+    t = torch.from_numpy(theta.astype(np.float32)).to(cuda)
+    a = bt.GpRegressor()._gram({"log_lengthscale": t[:, :2],
+                                "log_sigma_f": t[:, 2],
+                                "log_sigma_n": t[:, 3]}, x)
+    L64 = torch.linalg.cholesky(a.double())
+    z64 = torch.linalg.solve_triangular(L64, y.double()[..., None],
+                                        upper=False)[..., 0]
+
+    def rel(u, v):
+        u, v = u.double().flatten(1), v.double().flatten(1)
+        return float(((u - v).abs().amax(1) / v.abs().amax(1)).max())
+
+    L, z = cholesky_solve_batched(a, y)
+    L_p, z_p = cholesky_solve_plain(a, y)
+    assert rel(L, L64) <= 1.5 * rel(L_p, L64)
+    assert rel(z, z64) <= 1.5 * rel(z_p, z64)
+    assert max(rel(L, L64), rel(L, L_p)) <= 1e-5
+    assert max(rel(z, z64), rel(z, z_p)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_b6_non_positive_definite_matrices_are_nan(cuda):
+    a, y = (v.to(cuda) for v in _spd(8, 128, seed=3))
+    a[2] -= 10.0 * torch.eye(128, device=cuda)
+    a[5, 64, 64] = -1.0
+    L, z = cholesky_solve_batched(a, y)
+    L_ref, _ = cholesky_solve_plain(a, y)
+    torch.cuda.synchronize()
+    bad = [j in (2, 5) for j in range(8)]
+    assert torch.isnan(L).flatten(1).all(1).tolist() == bad
+    assert torch.isnan(z).all(1).tolist() == bad
+    assert torch.isnan(L_ref).flatten(1).all(1).tolist() == bad
+    assert bool(torch.isfinite(L[[0, 1, 3, 4, 6, 7]]).all())
+
+
+@pytest.mark.cuda
+def test_b5_b6_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    A = torch.zeros((2, 8, 3), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="VJP"):
+        sqdist(A, A)
+    with pytest.raises(TypeError):
+        sqdist(A.detach().double(), A.detach().double())
+    a, y = (v.to(cuda) for v in _spd(2, 16, seed=0))
+    with pytest.raises(NotImplementedError, match="VJP"):
+        cholesky_batched(a.requires_grad_())
+    with pytest.raises(TypeError):
+        cholesky_solve_batched(a.detach().double(), y.double())
+    with pytest.raises(ValueError, match="n <="):
+        cholesky_batched(torch.zeros((1, 1601, 1601), device=cuda))
+
+
+@pytest.mark.cuda
+def test_gp_lml_on_card_routes_to_b5_b6_and_matches_cpu(cuda):
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-4, 4, (256, 2)).astype(np.float32)
+    y = (np.sin(2 * x[:, 0]) * np.cos(x[:, 1])
+         + rng.normal(0, 0.2, 256)).astype(np.float32)
+    theta = (np.array([-0.3, 0.2, -0.1, -1.0]) + rng.normal(
+        0, 0.2, (8, 4))).astype(np.float32)
+
+    def lml(device):
+        gp = bt.GpRegressor(device=device)
+        t = torch.from_numpy(theta).to(device)
+        p = {"log_lengthscale": t[:, :2], "log_sigma_f": t[:, 2],
+             "log_sigma_n": t[:, 3]}
+        return gp.log_marginal_likelihood(p, x, y)
+
+    b5, b6 = sqdist.launches, cholesky_solve_batched.launches
+    on_card = lml(cuda)
+    torch.cuda.synchronize()
+    assert sqdist.launches - b5 == 1
+    assert cholesky_solve_batched.launches - b6 == 1
+    torch.testing.assert_close(on_card.cpu(), lml("cpu"), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_dram_over_gp_on_card_launches_b5_b6_twice_a_step(cuda):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(-4, 4, (128, 2)).astype(
+        np.float32)).to(cuda)
+    y = torch.sin(2 * x[:, 0]) * torch.cos(x[:, 1])
+    gp = bt.GpRegressor()
+
+    def log_post(theta):
+        p = {"log_lengthscale": theta[:, :2], "log_sigma_f": theta[:, 2],
+             "log_sigma_n": theta[:, 3]}
+        return (gp.log_marginal_likelihood(p, x, y)
+                - 0.5 * torch.sum((theta / 2) ** 2, -1))
+
+    s = bt.Dram(log_post, seed=1, n_chains=16)
+    b5, b6 = sqdist.launches, cholesky_solve_batched.launches
+    s.run_mcmc(30, np.zeros(4), cov_est=0.05 * np.eye(4))
+    assert sqdist.launches - b5 == 61
+    assert cholesky_solve_batched.launches - b6 == 61
+    assert np.all(np.isfinite(s.get_chain()))
+    assert bool(torch.all(torch.isfinite(s.final_state.logp)))

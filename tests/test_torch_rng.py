@@ -1,11 +1,12 @@
 """Port ↔ JAX: word → uniform / normal conversions (core/rng.py).
 
 ``bits_to_uniform`` must be bit-equal on the same 32-bit words.
-``uniform_to_normal`` goes through torch's ``erfinv`` against
-``jax.lax.erf_inv``: two float32 approximations. Against the float64
-value (scipy), torch's stays within 1e-6 and XLA's CPU one within 5e-5
-(both asserted below), so the two are held within atol 1e-4 of each
-other. In the DREAM step these normals are scaled by b* = 1e-6.
+``uniform_to_normal`` takes the inverse in float64 and rounds once;
+``jax.lax.erf_inv`` is a float32 approximation. Against the float64
+value (scipy), the port's stays within 1e-6 (half a float32 ulp is
+2.4e-7 at the 5.3σ tail) and XLA's CPU one within 5e-5 (both asserted
+below), so the two are held within atol 1e-4 of each other. In the
+DREAM step these normals are scaled by b* = 1e-6.
 """
 
 import jax.numpy as jnp
