@@ -6,8 +6,7 @@ mirrors ``bipymc_tpu``'s module paths, so the counterpart of
 The JAX package stays the reference; the port imports ``torch`` and
 ``numpy`` and nothing of JAX.
 
-The user's target is a batched ``log_prob(x[n, d]) -> [n]``. Two
-sampler families are ported:
+The user's target is a batched ``log_prob(x[n, d]) -> [n]``. Ported:
 
 - DREAM-zs on the per-generation engine: each generation launches two
   hand-written CUDA kernels, ``ops/distinct_idx.py`` (B3) and
@@ -21,7 +20,12 @@ sampler families are ported:
   likelihood, batched over chains), whose Gram matrices go through
   ``ops/pallas_kernels.py`` (B5) and whose batched factor-and-solve goes
   through ``ops/pallas_bchol.py`` (B6). BASELINE config 4 is ``Dram``
-  over a batched GP log-ML.
+  over a batched GP log-ML. ``GpRegressor.optimize`` trains the
+  hyperparameters through autograd (every GP kernel has a gradient);
+  ``pallas_chol=True`` factors on ``ops/pallas_chol.py`` (B7) and
+  ``pallas_solve=True`` solves on ``ops/pallas_solve.py`` (B8);
+  ``surrogate_log_like`` makes a fit a batched target (BASELINE config
+  5, sampled with ``DreamZs``).
 
 Entry points run on ``device="cuda"`` unless the caller passes another
 device::
@@ -40,7 +44,7 @@ device::
     def log_post(theta):                                  # [64, 4] → [64]
         p = {"log_lengthscale": theta[:, :2], "log_sigma_f": theta[:, 2],
              "log_sigma_n": theta[:, 3]}
-        lml = gp.log_marginal_likelihood(p, x, y)         # x [512, 2]
+        lml = gp._lml_impl(p, x, y)             # x [512, 2]: one B6 launch
         return lml - 0.5 * ((theta / 2) ** 2).sum(-1)
     s = bt.Dram(log_post, seed=1, n_chains=64)
     s.run_mcmc(2000, np.zeros(4), cov_est=0.05 * np.eye(4))

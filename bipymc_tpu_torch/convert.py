@@ -5,8 +5,8 @@ A JAX ``DreamState`` flattened with ``np.asarray`` under its field names
 ``cr_p``, ``cr_cum``, ``cr_jump``, ``cr_count``, ``logp_sum``, ``gen``)
 becomes the port's state and back, so both packages can start from, and
 be compared at, the same state. The same holds for the random-walk
-family's batched ``RwState``, and for the GP's params dict and
-``GpFit``. Nothing here imports JAX.
+family's batched ``RwState``, and for the GP's params dict (both ways:
+an ``optimize`` result can go either way) and ``GpFit``. Nothing here imports JAX.
 """
 
 import numpy as np
@@ -78,6 +78,13 @@ def gp_params(params: dict, device) -> dict:
     tensors on ``device`` (copies, in the arrays' own dtype)."""
     return {name: torch.as_tensor(np.array(v), device=device)
             for name, v in params.items()}
+
+
+def gp_params_to_numpy(params: dict) -> dict:
+    """GP params (the port's tensors or the JAX package's arrays, e.g. an
+    ``optimize`` result or a restart's start) → ``{name: np.ndarray}``."""
+    return {name: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                   else np.asarray(v)) for name, v in params.items()}
 
 
 def gp_fit(fit, device) -> GpFit:

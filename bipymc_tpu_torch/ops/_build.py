@@ -45,6 +45,8 @@ SIGNATURES = {
                         _F, _F, _I, _P, _P, _P, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
+    "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),
+    "trisolve": ("trisolve_launch", [_P, _P, _P, _I, _I, _I, _L, _I, _P]),
 }
 
 

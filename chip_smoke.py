@@ -30,8 +30,9 @@ non-zero:
    at the wide shape.
 2c. B5 (``sqdist``) and B6 (``bchol``: ``cholesky_batched`` and
    ``cholesky_solve_batched``) against their plain versions on the card:
-   B5 at config 4's [64, 512, 2] x [64, 512, 2] and at odd shapes within
-   atol 1e-3; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
+   B5 at config 4's [64, 512, 2] x [64, 512, 2], at config 5's [256, 2]
+   x [256, 2] and [256, 2] x [1024, 2] and at odd shapes within atol
+   1e-3; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
    (5, 200), (12, 256), (8, 1000)}, L within atol 5e-6·max|L| and z
    within atol 1e-5·max|z|, L bit-equal between the two entry points, and
    a batch with a matrix that is not positive definite: NaN in the same
@@ -43,6 +44,22 @@ non-zero:
    at config 4's shapes on the device clock, with a library call beside
    them (``torch.cdist``, distances; ``torch.linalg.cholesky_ex``, L
    alone, beside the kernel's L alone).
+2d. B5's gradient on config 5's operands against the plain version's
+   autograd within ``B5_GRAD_TOL``·max|g|. B7 (``chol``) and B8
+   (``trisolve``) against their plain versions on the card: B7 on one [256, 256] matrix (config 5), at n in {4, 33,
+   200, 1000} and on [5, 130, 130] and [3, 256, 256] batches within
+   5e-6·max|L|, NaN in exactly the indefinite matrices of a batch; B8
+   in both directions at b [256] and [256, 1024] (config 5), n in {4,
+   200, 1000} with m a partial tile of 8 columns, the batched and the
+   shared-L forms, within 1e-5·max|x|. Both on config 5's own Gram
+   matrices along ``optimize``'s trajectory (after 0, 10, 30, 100 and
+   300 Adam steps), held to a float64 factor (solve) within 1.5 x the
+   plain version's distance; their gradients against the plain routes'
+   (autograd of ``cholesky_ex`` and ``solve_triangular``); B8's backward
+   must launch the other direction. Timed at config 5's shapes with
+   ``torch.linalg.cholesky_ex`` / ``solve_triangular`` as the library
+   calls, and B7 beside B6's kernel on the same one matrix. B2 and B3
+   are also held at config 5's 1,024 × 2 (phase 2).
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -70,8 +87,25 @@ non-zero:
    1 + 2 x 2,000 times in the first run and 2 x 2,000 in the timed one;
    every final logp must be finite, and the card's log-ML at 4 of the
    final θ must be within rtol 1e-4 of a float64 NumPy log-ML. Then 50
-   steps timed alone and under the profiler.
-8. One JSON line of the kernels, the card's line, and the result line.
+   steps timed alone and under the profiler. (Config 4's target is
+   ``gp._lml_impl``, as in ``benchmarks/run_all.py``; the public log-ML
+   is grad-safe and skips B6.)
+8. BASELINE config 5 at full width as ``benchmarks/run_all.py:437-482``
+   runs it, with ``pallas_chol=True, pallas_solve=True``: ``optimize``
+   (300 Adam steps on 256 design points), ``fit``, the "mean"
+   surrogate plus the (θ/2)⁴ prior, and ``DreamZs(n_chains=1024,
+   seed=0).run_mcmc_until`` to R̂ < 1.1 (warm call, ``reset()``, timed
+   call). B7 must have launched 302 times (a step, the final log-ML,
+   the fit), B8 603 (two a step, one, two), B5 302 plus one a
+   generation and one at each start, B2 and B3 once a generation, B6
+   never. Every final logp finite; the optimised log-ML within rtol
+   1e-4 of a float64 NumPy one at the same params; the params within
+   1e-2 of the port's own CPU ``optimize``; the posterior mean within
+   0.1 of θ = (1.2, −0.7). Then ``optimize``'s wall with the library
+   route between two with the kernels, the device's busy share of an
+   Adam step and of a DREAM generation, and 200 generations of the
+   "lcb" surrogate, B8 once a generation.
+9. One JSON line of the kernels, the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -145,6 +179,20 @@ def device_times(fn, reps):
     return out
 
 
+def host_times(fn, top=8):
+    """The host's own time by operator over one call of ``fn`` (the
+    profiler's self CPU time, µs), the ``top`` largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    return rows[:top]
+
+
 def device_ms(fn, reps=200, warmup=20):
     """Device time of one call of ``fn``: the summed durations of the
     kernels it runs, over ``reps`` calls."""
@@ -168,7 +216,9 @@ def check_b3(dev):
     from bipymc_tpu_torch.ensemble.indices import distinct_from_bits
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 
-    cases = [(N_CHAINS, 6, CAPACITY, False)]
+    # config 3's shape, then config 5's: 1,024 chains, archive 32,768
+    cases = [(N_CHAINS, 6, CAPACITY, False), (C5_CHAINS, 6, C5_CAPACITY,
+                                                False)]
     for k in (3, 6):
         for n in (k, k + 1, 17, CAPACITY):
             for ex in (False, True):
@@ -229,7 +279,9 @@ def check_b2(dev):
     kw = dict(n_pairs=3, b=1e-4, b_star=1e-6)
     main_err = None
     cases = [(N_CHAINS, D, "mixed", False, False),
-             (N_CHAINS, D, "mixed", True, False)]
+             (N_CHAINS, D, "mixed", True, False),
+             (C5_CHAINS, 2, "mixed", False, False),     # config 5
+             (C5_CHAINS, 2, "mixed", True, False)]
     for d in (1, 3, 8, 100, 129):
         for n in (5, 32):
             for snooker in ("all", "none", "mixed"):
@@ -639,10 +691,16 @@ def check_b5(dev):
         cases.append((f"c={c} n={n} m={m} k={k}", A, B))
     A, B = b5_operands(1, 40, 50, 3, seed=1, dev=dev)
     cases.append(("unbatched [40, 3] x [50, 3]", A[0], B[0]))
+    # config 5, unbatched as one param set calls it: the design against
+    # itself (the Gram of each Adam step and of fit) and against a
+    # 1,024-row θ batch (the surrogate, once a DREAM generation)
+    a5, t5 = config5_b5_operands(dev)
+    cases += [("config 5 [256, 2] x [256, 2]", a5, a5),
+              ("config 5 [256, 2] x [1024, 2]", a5, t5)]
     A, B = b5_operands(2, 40, 50, 3, seed=2, dev=dev)
     A[1, 7, 0] = torch.nan
     cases.append(("a NaN input row", A, B))
-    errs = []
+    errs = {}
     for label, A, B in cases:
         out, ref = sqdist(A, B), sqdist_plain(A, B)
         torch.cuda.synchronize()
@@ -653,10 +711,12 @@ def check_b5(dev):
             raise AssertionError(f"B5 differs from its plain version at "
                                  f"{label}: max |d| {err:.3g}, NaN in the "
                                  f"same places {same_nan}")
-        errs.append(err)
-    main_err = errs[0]
+        errs[label] = err
+    main_err = errs["config 4"]
+    c5_err = {k: v for k, v in errs.items() if k.startswith("config 5")}
     log(f"B5 sqdist: within atol 1e-3 of the plain version in {len(cases)} "
-        f"cases; config-4 max abs error {main_err:.3g}")
+        f"cases; config-4 max abs error {main_err:.3g}; config 5's "
+        f"{json.dumps(c5_err)}")
 
     kernel = lambda: sqdist(xs, xs)
     plain = lambda: sqdist_plain(xs, xs)
@@ -666,10 +726,27 @@ def check_b5(dev):
     c, n, k = C4_CHAINS, C4_N, 2
     n_bytes = 4 * (2 * c * n * k + c * n * n)
     n_ops = c * n * n * (2 * k + 3) + 2 * c * 2 * n * k
-    return kernel_record(
+    rec = kernel_record(
         "sqdist", "bipymc_tpu_torch/csrc/sqdist.cu",
         "bipymc_tpu/ops/pallas_kernels.py:73", main_err, times, n_bytes,
         n_ops, library_ms=device_ms(library))
+    rec["config5_max_abs_err"] = c5_err
+    return rec
+
+
+def config5_b5_operands(dev):
+    """B5's operands on config 5's path, as ``pairwise_sqdist`` forms
+    them: the design [256, 2] over length-scales about where ``optimize``
+    ends (phase 8), centred on its mean, and 1,024 θ over the prior's
+    region, U(−2.5, 2.5)², scaled and centred alike."""
+    x, _ = config5_data()
+    ls = torch.exp(torch.tensor(C5_LOG_LENGTHSCALE, device=dev))
+    xs = torch.as_tensor(x, device=dev) / ls
+    g = torch.Generator(device=dev).manual_seed(9)
+    th = (5.0 * torch.rand((C5_CHAINS, 2), generator=g, device=dev)
+          - 2.5) / ls
+    mu = xs.mean(0)
+    return xs - mu, th - mu
 
 
 def spd_batch(b, n, seed, dev):
@@ -707,13 +784,15 @@ def config4_grams(dev):
     return a, yn.expand(C4_CHAINS, C4_N).contiguous()
 
 
+def worst_rel(u, v):
+    """max |u − v| / max |v| per leading entry, the largest."""
+    u, v = u.double().flatten(1), v.double().flatten(1)
+    return float(((u - v).abs().amax(1) / v.abs().amax(1)).max())
+
+
 def rel_errors(L, z, L_ref, z_ref):
-    """max |L − L_ref| / max |L_ref| and the same of z, each per matrix,
-    the largest over the batch."""
-    def worst(u, v):
-        u, v = u.double().flatten(1), v.double().flatten(1)
-        return float(((u - v).abs().amax(1) / v.abs().amax(1)).max())
-    return worst(L, L_ref), worst(z, z_ref)
+    """:func:`worst_rel` of L and of z against their references."""
+    return worst_rel(L, L_ref), worst_rel(z, z_ref)
 
 
 def check_b6_gram(dev):
@@ -829,11 +908,16 @@ def check_b6(dev):
 C4_STEPS = 2000
 
 
-def np_log_ml(theta, x, y):
-    """The GP log-ML in float64 NumPy (``benchmarks/run_all.py:329-340``,
-    with the port's jitter floor 4·n·ε_f32·σ_f² for its 1e-5·σ_f²)."""
+def np_log_ml(theta, x, y, normalize_y=False):
+    """The GP log-ML in float64 NumPy at θ = (log ℓ₀, log ℓ₁, log σ_f,
+    log σ_n) (``benchmarks/run_all.py:329-340``, with the port's jitter
+    floor 4·n·ε_f32·σ_f² for its 1e-5·σ_f²); with ``normalize_y`` the
+    targets standardised and −n log y_std added, as ``_lml_impl`` does."""
     x64, y64, t = (np.asarray(v, np.float64) for v in (x, y, theta))
     n = len(y64)
+    y_std = y64.std() if normalize_y else 1.0
+    if normalize_y:
+        y64 = (y64 - y64.mean()) / y_std
     ls, sf2, sn2 = np.exp(t[0:2]), np.exp(2.0 * t[2]), np.exp(2.0 * t[3])
     sq = ((x64[:, None, :] - x64[None, :, :]) / ls) ** 2
     jitter = 4 * n * float(np.finfo(np.float32).eps)
@@ -841,7 +925,7 @@ def np_log_ml(theta, x, y):
     L = np.linalg.cholesky(kmat)
     v = np.linalg.solve(L, y64)
     return (-0.5 * v @ v - np.sum(np.log(np.diag(L)))
-            - 0.5 * n * np.log(2.0 * np.pi))
+            - 0.5 * n * np.log(2.0 * np.pi) - n * np.log(y_std))
 
 
 def config4_path(dev):
@@ -857,8 +941,10 @@ def config4_path(dev):
         return {"log_lengthscale": theta[:, 0:2], "log_sigma_f": theta[:, 2],
                 "log_sigma_n": theta[:, 3]}
 
+    # config 4's target, as benchmarks/run_all.py:305-307 writes it:
+    # _lml_impl, whose batch goes to B6 (the public log-ML is grad-safe)
     def log_post(theta):
-        return (gp.log_marginal_likelihood(params(theta), xt, yt)
+        return (gp._lml_impl(params(theta), xt, yt)
                 - 0.5 * torch.sum((theta / 2.0) ** 2, dim=-1))
 
     n = C4_STEPS
@@ -895,7 +981,7 @@ def config4_path(dev):
     ess, ess_per_sec = bt.ess_rate(kept, steps_per_sec)
     # the card's log-ML at the final θ (all 64, through B5 and B6) against
     # float64 NumPy at four of them
-    lml = gp.log_marginal_likelihood(params(final.theta), xt, yt).cpu()
+    lml = gp._lml_impl(params(final.theta), xt, yt).cpu()
     theta = final.theta.cpu().numpy()
     picks = [0, 21, 42, 63]
     ref = np.array([np_log_ml(theta[i], x, y) for i in picks])
@@ -914,6 +1000,464 @@ def config4_path(dev):
         raise AssertionError(f"config 4: the card's log-ML is off the "
                              f"float64 one: relative errors {rel.tolist()}")
     busy_share(s, n_units=50, per_unit=1, unit="step")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 2d
+C5_CHAINS, C5_CAPACITY, C5_N, C5_STEPS = 1024, 32768, 256, 300
+C5_TRUE = (1.2, -0.7)
+C5_TRAJECTORY = (0, 10, 30, 100, 300)   # Adam steps of the Gram check
+C5_LOG_LENGTHSCALE = (0.23, 0.35)       # about where optimize ends
+# max|dg|/max|g| between B5's gradient and the plain version's autograd
+# on config 5's operands; the first card readings 6.7e-8 ([256] x [256])
+# and 9.5e-8 ([256] x [1024])
+B5_GRAD_TOL = 1e-6
+# max|dL|/max|L| on config 5's Gram matrices; the first card readings:
+# kernel vs float64 4.5e-5, plain vs float64 6.5e-5, kernel vs plain 8.2e-5
+C5_GRAM_TOL = 2e-4
+
+
+def config5_data():
+    """Config 5's design and scores, as ``benchmarks/run_all.py:439-452``
+    makes them: 256 θ in U(−2, 2)², the Gaussian log-likelihood of an
+    8-point forward model at each."""
+    rng = np.random.default_rng(11)
+    t_grid = np.linspace(0, 1, 8)
+    true = np.array(C5_TRUE, dtype=np.float32)
+
+    def fwd(th):
+        return th[0] * np.exp(-2 * t_grid) + th[1] * t_grid ** 2
+
+    y_obs = fwd(true) + rng.normal(0, 0.05, 8)
+    design = rng.uniform(-2, 2, (C5_N, 2)).astype(np.float32)
+    scores = np.array([
+        -0.5 * float((fwd(t) - y_obs) @ (fwd(t) - y_obs)) / 0.05 ** 2
+        for t in design], dtype=np.float32)
+    return design, scores
+
+
+def config5_grams(dev):
+    """Config 5's Gram matrices along ``optimize``'s trajectory: the
+    params after each of ``C5_TRAJECTORY`` Adam steps (library route), and
+    ``GpRegressor._gram`` there, [5, 256, 256], with the standardised
+    scores."""
+    import bipymc_tpu_torch as bt
+
+    x, y = config5_data()
+    gp = bt.GpRegressor(normalize_y=True, device=dev)
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    grams = []
+    for steps in C5_TRAJECTORY:
+        p = (bt.gp.default_params(2, device=dev) if steps == 0 else
+             gp.optimize(x, y, steps=steps)[0])
+        grams.append(gp._gram(p, xt))
+    return torch.stack(grams), gp._normalize(yt)[0]
+
+
+def check_b5_grad(dev):
+    """B5's gradient on config 5's operands against autograd through the
+    plain version: d/dA and d/dB of sum(w ⊙ sqdist(A, B)), w fixed and
+    random, with A = B the design (the Gram of each Adam step, both
+    arguments one leaf as in ``pairwise_sqdist``) and at [256, 2] x
+    [1024, 2]. The kernel's route must launch B5."""
+    from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
+
+    a5, t5 = config5_b5_operands(dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    readings = {}
+    for label, B in (("[256, 2] x [256, 2]", None),
+                     ("[256, 2] x [1024, 2]", t5)):
+        w = torch.randn((C5_N, C5_N if B is None else B.shape[0]),
+                        generator=g, device=dev)
+        grads = []
+        for f in (sqdist, sqdist_plain):
+            a = a5.clone().requires_grad_(True)
+            b = a if B is None else B.clone().requires_grad_(True)
+            before = sqdist.launches
+            torch.sum(w * f(a, b)).backward()
+            if (sqdist.launches > before) != (f is sqdist):
+                raise AssertionError(f"B5's route at {label} launched "
+                                     f"{sqdist.launches - before} times")
+            grads.append(torch.cat([a.grad.flatten()] + (
+                [] if B is None else [b.grad.flatten()])))
+        readings[label] = worst_rel(grads[0][None], grads[1][None])
+    log("B5 gradient on config 5's operands, max|dg|/max|g| against the "
+        "plain version's autograd:", json.dumps(readings))
+    if not max(readings.values()) <= B5_GRAD_TOL:
+        raise AssertionError(f"B5's gradient differs from the plain "
+                             f"route's: {readings} (limit {B5_GRAD_TOL})")
+    return readings
+
+
+def check_b7(dev):
+    from bipymc_tpu_torch.ops.pallas_bchol import cholesky_batched
+    from bipymc_tpu_torch.ops.pallas_chol import (cholesky_pallas,
+                                                  cholesky_plain)
+
+    # SPD cases (x xᵀ/24 + 3I): one matrix at config 5's n and at edges,
+    # a batch, and a batch with two indefinite matrices
+    cases = [(None, C5_N), (None, 4), (None, 33), (None, 200), (None, 1000),
+             (5, 130), (3, 256)]
+    errs = {}
+    for i, (b, n) in enumerate(cases):
+        a, _ = spd_batch(b or 1, n, seed=40 + i, dev=dev)
+        a = a if b else a[0]
+        L, ref = cholesky_pallas(a), cholesky_plain(a)
+        torch.cuda.synchronize()
+        e = float((L - ref).abs().max())
+        s = float(ref.abs().max())
+        if not (e <= 5e-6 * s and bool(torch.all(torch.triu(L, 1) == 0))):
+            raise AssertionError(f"B7 differs from its plain version at "
+                                 f"b={b} n={n}: max |dL| {e:.3g} (bound "
+                                 f"{5e-6 * s:.3g})")
+        errs[(b, n)] = e
+    a, _ = spd_batch(6, 128, seed=7, dev=dev)
+    a[1] -= 10.0 * torch.eye(128, device=dev)
+    a[4, 64, 64] = -1.0
+    L = cholesky_pallas(a)
+    bad = torch.isnan(L).flatten(1).all(1).tolist()
+    if bad != [j in (1, 4) for j in range(6)] or not bool(
+            torch.isfinite(L[[0, 2, 3, 5]]).all()):
+        raise AssertionError(f"B7: NaN matrices {bad}, want 1 and 4")
+    log(f"B7 chol: L within 5e-6·max|L| of the plain version in "
+        f"{len(cases)} cases, NaN in exactly the indefinite matrices")
+
+    # config 5's Gram matrices along the optimize trajectory, both float32
+    # routes against a float64 factor of the same float32 matrices
+    a, _ = config5_grams(dev)
+    L, L_p = cholesky_pallas(a), cholesky_plain(a)
+    L64 = torch.linalg.cholesky(a.double())
+    cond = torch.linalg.cond(a.double()).cpu().numpy()
+    k, p, d = worst_rel(L, L64), worst_rel(L_p, L64), worst_rel(L, L_p)
+    readings = {"steps": list(C5_TRAJECTORY), "cond": cond.tolist(),
+                "kernel_vs_f64": k, "plain_vs_f64": p, "kernel_vs_plain": d}
+    log("B7 on config-5 Gram matrices, the worst max|dL|/max|L|:",
+        json.dumps(readings))
+    # each float32 route stands ~cond·ε from the float64 factor (cond up
+    # to 8.3e5 at the trajectory's end): the kernel no further than 1.5 x
+    # the plain version, and within C5_GRAM_TOL of float64 and of it
+    if not (k <= 1.5 * p + 1e-7 and max(k, d) <= C5_GRAM_TOL):
+        raise AssertionError(f"B7 on config-5 Gram matrices is off: "
+                             f"{readings}, limits 1.5 x the plain version's "
+                             f"distance from float64, {C5_GRAM_TOL} from "
+                             f"it and from the plain version")
+
+    # gradients through both routes: a GP-shaped loss of the Gram matrix
+    g = a[-1].clone().requires_grad_(True)
+    w = torch.randn(C5_N, C5_N, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    torch.sum(w * cholesky_pallas(g)).backward()
+    gk = g.grad.clone()
+    g.grad = None
+    torch.sum(w * cholesky_plain(g)).backward()
+    eg = worst_rel(gk[None], g.grad[None])
+    log(f"B7 gradient at config 5's last Gram matrix: max|dA|/max|A| "
+        f"{eg:.3g} between the routes")
+    if not eg <= 1e-3:
+        raise AssertionError(f"B7's gradient differs from the plain "
+                             f"route's by {eg:.3g} (limit 1e-3)")
+
+    a1 = a[-1].contiguous()
+    kernel = lambda: cholesky_pallas(a1)
+    plain = lambda: cholesky_plain(a1)
+    library = lambda: torch.linalg.cholesky_ex(a1)
+    times = (device_ms(kernel), device_ms(plain), call_ms(kernel),
+             call_ms(plain))
+    b6_ms = device_ms(lambda: cholesky_batched(a1[None]))
+    log(f"B7 against B6's kernel on the same one matrix (b = 1), device "
+        f"ms: B7 {times[0]:.6f}, B6 {b6_ms:.6f}")
+    n = C5_N
+    rec = kernel_record(
+        "chol", "bipymc_tpu_torch/csrc/chol.cu",
+        "bipymc_tpu/ops/pallas_chol.py:188", errs[(None, C5_N)], times,
+        4 * 2 * n * n, n ** 3 // 3 * 2, library_ms=device_ms(library))
+    rec["b6_one_matrix_ms"] = b6_ms
+    rec["gram_readings"] = readings
+    return rec
+
+
+def check_b8(dev):
+    from bipymc_tpu_torch.ops.pallas_chol import cholesky_plain
+    from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
+                                                   tri_solve_plain,
+                                                   tri_solve_t,
+                                                   tri_solve_t_plain)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rhs(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    def factor(b, n, seed):
+        a, _ = spd_batch(b or 1, n, seed=seed, dev=dev)
+        L = cholesky_plain(a)
+        return L if b else L[0]
+
+    # (L batch, n, right-hand side shape): config 5's [256] and
+    # [256, 1024], n not a multiple of 32, m a partial tile of 8 columns,
+    # the batched and the shared-L forms
+    cases = [(None, C5_N, (C5_N,)), (None, C5_N, (C5_N, C5_CHAINS)),
+             (None, 4, (4,)), (None, 4, (4, 9)), (None, 200, (200, 9)),
+             (None, 200, (200, 130)), (None, 1000, (1000,)),
+             (None, 1000, (1000, 17)), (3, 96, (3, 96)),
+             (3, 96, (3, 96, 5)), (None, 70, (4, 70, 3))]
+    errs = {}
+    for i, (b, n, shape) in enumerate(cases):
+        L, y = factor(b, n, seed=60 + i), rhs(*shape)
+        for fn, ref_fn in ((tri_solve, tri_solve_plain),
+                           (tri_solve_t, tri_solve_t_plain)):
+            out, ref = fn(L, y), ref_fn(L, y)
+            torch.cuda.synchronize()
+            e = float((out - ref).abs().max())
+            if not (out.shape == ref.shape and bool(
+                    torch.isfinite(out).all()) and
+                    e <= 1e-5 * float(ref.abs().max())):
+                raise AssertionError(
+                    f"B8 {fn.__name__} differs from its plain version at "
+                    f"L batch {b}, n={n}, b {shape}: max |dx| {e:.3g}")
+            errs[(b, n, shape, fn.__name__)] = e
+    log(f"B8 trisolve: within 1e-5·max|x| of the plain version in "
+        f"{2 * len(cases)} cases, every column of the partial tiles written")
+
+    # on config 5's factors along the trajectory, against float64
+    a, yn = config5_grams(dev)
+    L = cholesky_plain(a)
+    y = yn.expand(len(C5_TRAJECTORY), C5_N).contiguous()
+    x64 = torch.linalg.solve_triangular(L.double(), y.double()[..., None],
+                                        upper=False)[..., 0]
+    k, p = worst_rel(tri_solve(L, y), x64), worst_rel(
+        tri_solve_plain(L, y), x64)
+    t64 = torch.linalg.solve_triangular(L.double().transpose(-1, -2),
+                                        y.double()[..., None],
+                                        upper=True)[..., 0]
+    kt, pt = worst_rel(tri_solve_t(L, y), t64), worst_rel(
+        tri_solve_t_plain(L, y), t64)
+    readings = {"tri_solve": [k, p], "tri_solve_t": [kt, pt]}
+    log("B8 on config-5 factors, the worst max|dx|/max|x| against float64 "
+        "(kernel, plain):", json.dumps(readings))
+    if not (k <= 1.5 * p + 1e-6 and kt <= 1.5 * pt + 1e-6):
+        raise AssertionError(f"B8 on config-5 factors is off: {readings}")
+
+    # gradients through both routes, and each backward launching the
+    # other direction's kernel
+    L1 = factor(None, 200, seed=5).requires_grad_(True)
+    b1 = rhs(200, 7).requires_grad_(True)
+    w = rhs(200, 7)
+    grads = {}
+    for route, fn in (("kernel", solve_chol), ("plain", lambda l, v:
+                                               tri_solve_t_plain(
+                                                   l, tri_solve_plain(l, v)))):
+        before = tri_solve.launches
+        torch.sum(w * fn(L1, b1) ** 2).backward()
+        if route == "kernel" and tri_solve.launches - before != 4:
+            raise AssertionError(f"solve_chol forward and backward launched "
+                                 f"B8 {tri_solve.launches - before} times, "
+                                 f"not 4")
+        grads[route] = (L1.grad.clone(), b1.grad.clone())
+        L1.grad = b1.grad = None
+    el = worst_rel(torch.tril(grads["kernel"][0])[None],
+                   torch.tril(grads["plain"][0])[None])
+    eb = worst_rel(grads["kernel"][1][None], grads["plain"][1][None])
+    log(f"B8 gradients (solve_chol, n=200, m=7): max|dL̄|/max|L̄| {el:.3g}, "
+        f"max|db̄|/max|b̄| {eb:.3g} between the routes")
+    if not (el <= 1e-4 and eb <= 1e-4):
+        raise AssertionError(f"B8's gradients differ from the plain route's: "
+                             f"{el:.3g}, {eb:.3g} (limit 1e-4)")
+
+    Lc = L[-1].contiguous()
+    n, m = C5_N, C5_CHAINS
+
+    def timed(y):
+        kernel = lambda: tri_solve(Lc, y)
+        plain = lambda: tri_solve_plain(Lc, y)
+        mm = 1 if y.dim() == 1 else y.shape[-1]
+        times = (device_ms(kernel), device_ms(plain), call_ms(kernel),
+                 call_ms(plain))
+        n_bytes = 4 * (n * n + 2 * n * mm)
+        n_ops = n * n * mm                   # n²/2 FMAs a column
+        return times, n_bytes, n_ops, device_ms(plain)
+
+    times, n_bytes, n_ops, lib = timed(yn.contiguous())
+    rec = kernel_record("trisolve", "bipymc_tpu_torch/csrc/trisolve.cu",
+                        "bipymc_tpu/ops/pallas_solve.py:181",
+                        errs[(None, C5_N, (C5_N,), "tri_solve")], times,
+                        n_bytes, n_ops, library_ms=lib)
+    ks = rhs(n, m)
+    times, n_bytes, n_ops, lib = timed(ks)
+    wide = kernel_record("trisolve", "", "", None, times, n_bytes, n_ops,
+                         library_ms=lib)
+    rec["lcb_shape"] = {k_: wide[k_] for k_ in (
+        "ms", "plain_ms", "call_ms", "plain_call_ms", "bound_ms",
+        "bound_by", "library_ms")}
+    rec["lcb_shape"]["shape"] = "L [256, 256], b [256, 1024]"
+    rec["lcb_shape"]["max_abs_err"] = errs[(None, C5_N, (C5_N, m),
+                                            "tri_solve")]
+    rec["f64_readings"] = readings
+    return rec
+
+
+# ---------------------------------------------------------------- phase 8
+def config5_path(dev):
+    """BASELINE config 5 at full width, as ``benchmarks/run_all.py:437-482``
+    runs it, with the kernel flags on."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
+    from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.pallas_bchol import cholesky_solve_batched
+    from bipymc_tpu_torch.ops.pallas_chol import cholesky_pallas
+    from bipymc_tpu_torch.ops.pallas_kernels import sqdist
+    from bipymc_tpu_torch.ops.pallas_solve import tri_solve
+
+    x, y = config5_data()
+    gp = bt.GpRegressor(normalize_y=True, pallas_chol=True, pallas_solve=True,
+                        device=dev)
+    counters = (sqdist, cholesky_pallas, tri_solve, cholesky_solve_batched,
+                distinct_idx, dream_propose)
+    names = ("sqdist", "chol", "trisolve", "bchol", "distinct_idx",
+             "dream_propose")
+
+    def counts():
+        return dict(zip(names, (c.launches for c in counters)))
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, lml = gp.optimize(x, y, steps=C5_STEPS, lr=0.05)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    after_opt = counts()
+    fit = gp.fit(x, y, params=params)
+    sur = gp.surrogate_log_like(fit)
+
+    def log_post(th):
+        return sur(th) - 0.5 * torch.sum((th / 2.0) ** 4, dim=-1)
+
+    s = bt.DreamZs(log_post, n_chains=C5_CHAINS, seed=0, device=dev)
+    kw = dict(rhat_tol=1.1, chunk=100, max_chunks=100, spread=1.0)
+    t0 = time.perf_counter()
+    warm = s.run_mcmc_until(torch.zeros(2), **kw)
+    warm_s = time.perf_counter() - t0
+    s.reset()
+    t0 = time.perf_counter()
+    info = s.run_mcmc_until(torch.zeros(2), **kw)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    gens = int(warm["steps"]) + int(info["steps"])
+    # optimize: a step factors once (B7), solves forward once and, in its
+    # backward, once transposed (B8), and builds one Gram (B5); the final
+    # log-ML once more each but the backward; fit one factor, two solves,
+    # one Gram; then each run_mcmc_until one B5 at the start and one a
+    # generation, and one B2 and one B3 a generation
+    want = {"chol": C5_STEPS + 2, "trisolve": 2 * C5_STEPS + 3,
+            "sqdist": C5_STEPS + 2 + 2 + gens, "bchol": 0,
+            "distinct_idx": gens, "dream_propose": gens}
+    want_opt = {"chol": C5_STEPS + 1, "trisolve": 2 * C5_STEPS + 1,
+                "sqdist": C5_STEPS + 1}
+    if launches != want or any(after_opt[k] != v
+                               for k, v in want_opt.items()):
+        raise AssertionError(f"config 5 launches {launches} (after "
+                             f"optimize {after_opt}), want {want} (after "
+                             f"optimize {want_opt})")
+
+    final = s.final_state
+    theta = np.concatenate([params[k].cpu().numpy().reshape(-1) for k in (
+        "log_lengthscale", "log_sigma_f", "log_sigma_n")])
+    ref = np_log_ml(theta, x, y, normalize_y=True)
+    rel = abs(float(lml) - ref) / abs(ref)
+    # the same optimize on the CPU, the port's plain versions
+    cpu_p, cpu_l = bt.GpRegressor(normalize_y=True, pallas_chol=True,
+                                  pallas_solve=True, device="cpu").optimize(
+        x, y, steps=C5_STEPS, lr=0.05)
+    dp = max(float((params[k].cpu() - cpu_p[k]).abs().max()) for k in params)
+    mean = info["mean"].mean(0)
+    err = float(np.abs(mean - np.array(C5_TRUE)).max())
+
+    # optimize with the library route (cholesky_ex, solve_triangular;
+    # B5 still builds the Gram), between two more runs with the kernels
+    lib = bt.GpRegressor(normalize_y=True, device=dev)
+
+    def opt_wall(g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.optimize(x, y, steps=C5_STEPS, lr=0.05)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {"kernels_first_s": opt_s, "library_s": opt_wall(lib),
+             "kernels_again_s": opt_wall(gp)}
+    result = {
+        "optimize": walls, "lml": float(lml), "lml_f64": ref,
+        "lml_rel_err": rel, "params": {k: v.cpu().tolist()
+                                       for k, v in params.items()},
+        "params_max_abs_diff_vs_cpu": dp, "lml_cpu": float(cpu_l),
+        "rhat_gens": int(info["steps"]), "wall_to_rhat_s": wall,
+        "warm_call_s": warm_s, "warm_gens": int(warm["steps"]),
+        "final_rhat": float(np.max(info["rhat"])),
+        "posterior_mean": mean.tolist(), "posterior_mean_abs_err": err,
+        "launches": launches}
+    log("config 5:", json.dumps(result))
+    if not bool(torch.all(torch.isfinite(final.logp))):
+        raise AssertionError("config 5: a final logp is not finite")
+    if not (math.isfinite(float(lml)) and rel < 1e-4):
+        raise AssertionError(f"config 5: the optimised log-ML {float(lml)} "
+                             f"is off the float64 one {ref} (rel {rel:.3g})")
+    if not dp <= 1e-2:
+        raise AssertionError(f"config 5: the card's optimised params differ "
+                             f"from the CPU's by {dp:.3g} (limit 1e-2)")
+    if not err < 0.1:
+        raise AssertionError(f"config 5: posterior mean {mean.tolist()} is "
+                             f"off the truth {C5_TRUE}")
+
+    # the device's share of an Adam step and of a DREAM generation
+    p0 = bt.gp.default_params(2, device=dev)
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    adam = lambda: gp._adam(xt, yt, p0, 20, 0.05)
+    adam()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adam()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 20 * 1e6
+    rows = device_times(adam, 1)
+    busy_us = sum(us for us, _ in rows.values()) / 20
+    log("device, Adam step:", json.dumps({
+        "wall_us_per_step": wall_us, "busy_us_per_step": busy_us,
+        "busy_share": busy_us / wall_us,
+        "kernels_per_step": sum(c for _, c in rows.values()) / 20}))
+    for key, (us, count) in sorted(rows.items(),
+                                   key=lambda r: -r[1][0])[:12]:
+        log(f"  {us / 20:8.3f} us/step {count / 20:6.1f}/step  {key[:100]}")
+    log("host, Adam step, self CPU µs a step by operator:")
+    for us, count, key in host_times(adam):
+        log(f"  {us / 20:8.1f} us/step {count / 20:6.1f}/step  {key[:80]}")
+    busy_share(s, n_units=200)
+    log("host, DREAM generation, self CPU µs a generation by operator:")
+    for us, count, key in host_times(lambda: s.run_mcmc(50)):
+        log(f"  {us / 50:8.1f} us/gen {count / 50:6.1f}/gen  {key[:80]}")
+
+    # the lcb arm: 200 generations, B8 once a generation (and at the start)
+    sur_lcb = gp.surrogate_log_like(fit, kind="lcb")
+    s2 = bt.DreamZs(lambda th: sur_lcb(th) - 0.5 * torch.sum(
+        (th / 2.0) ** 4, dim=-1), n_chains=C5_CHAINS, seed=0, device=dev)
+    tri_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s2.run_mcmc(200, torch.zeros(2))
+    torch.cuda.synchronize()
+    lcb_s = time.perf_counter() - t0
+    lcb = {"gens_per_sec": 200 / lcb_s, "trisolve_launches":
+           tri_solve.launches, "acceptance": float(np.mean(
+               s2.acceptance_fraction)),
+           "mean_last_100": s2.get_chain(discard=100, flat=True).mean(
+               0).tolist()}
+    log("config 5, lcb:", json.dumps(lcb))
+    if tri_solve.launches != 201 or not bool(
+            torch.all(torch.isfinite(s2.final_state.logp))):
+        raise AssertionError(f"config 5 lcb: B8 launched "
+                             f"{tri_solve.launches} times in 200 "
+                             f"generations (want 201), or a logp is not "
+                             f"finite")
     return launches
 
 
@@ -946,12 +1490,16 @@ def main():
 
     records = [check_b3(dev), check_b2(dev), check_b4(dev), check_b5(dev),
                check_b6(dev)]
+    records[3]["config5_grad"] = check_b5_grad(dev)
+    records += [check_b7(dev), check_b8(dev)]
     launch_floor(dev)
     launches = main_path(dev)
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)
     launches.update(config4_path(dev))
+    c5 = config5_path(dev)
+    launches.update(chol=c5["chol"], trisolve=c5["trisolve"])
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(math.isfinite(r["ms"]) for r in records):

@@ -20,7 +20,11 @@ On config 4's Gram matrices, where both float32 routes stand ~cond·ε
 from a float64 factor, B6 is held to that factor: within 1.5 x the plain
 version's distance from it, and within 1e-5 (L) and 1e-4 (z), per matrix
 relative to its max, of it and of the plain version (chip_smoke.py's
-GRAM_TOL).
+GRAM_TOL). B7 is held within 5e-6·max|L| of its plain version on SPD
+matrices (B6's bound), B8 within 1e-5·max|x| (two float32 substitutions
+summing in other orders); their gradients, and B5's and B6's, within
+1e-4 of the plain routes' (relative to the largest entry), autograd of
+``cholesky_ex`` and ``solve_triangular`` on the card.
 The unmarked tests run everywhere: a tensor on a device with no kernel
 raises rather than taking the plain version.
 """
@@ -39,7 +43,11 @@ from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
                                                cholesky_solve_batched,
                                                cholesky_solve_plain)
+from bipymc_tpu_torch.ops.pallas_chol import cholesky_pallas, cholesky_plain
 from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
+from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
+                                               tri_solve_plain, tri_solve_t,
+                                               tri_solve_t_plain)
 from bipymc_tpu_torch.samplers import dream, rw
 
 torch.set_num_threads(2)
@@ -384,18 +392,166 @@ def test_b6_non_positive_definite_matrices_are_nan(cuda):
 
 @pytest.mark.cuda
 def test_b5_b6_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """Types and sizes the kernels do not take raise; a tensor that
+    requires grad, once refused, now goes through the kernels' autograd
+    Functions."""
     A = torch.zeros((2, 8, 3), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="VJP"):
-        sqdist(A, A)
+    assert type(sqdist(A, A).grad_fn).__name__ == "_SqdistBackward"
     with pytest.raises(TypeError):
         sqdist(A.detach().double(), A.detach().double())
     a, y = (v.to(cuda) for v in _spd(2, 16, seed=0))
-    with pytest.raises(NotImplementedError, match="VJP"):
-        cholesky_batched(a.requires_grad_())
+    assert type(cholesky_batched(a.requires_grad_()).grad_fn).__name__ == \
+        "CholeskyBackward"
     with pytest.raises(TypeError):
         cholesky_solve_batched(a.detach().double(), y.double())
     with pytest.raises(ValueError, match="n <="):
         cholesky_batched(torch.zeros((1, 1601, 1601), device=cuda))
+
+
+def _rel(u, v):
+    return float((u - v).abs().max() / v.abs().max())
+
+
+@pytest.mark.cuda
+def test_b5_b6_gradients_match_plain_routes(cuda):
+    rng = np.random.default_rng(2)
+    A = torch.from_numpy(rng.standard_normal((2, 150, 2)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((2, 150, 150)).astype(
+        np.float32)).to(cuda)
+    grads = []
+    for fn in (sqdist, sqdist_plain):
+        a = A.clone().requires_grad_(True)
+        torch.sum(g * fn(a, a)).backward()
+        grads.append(a.grad)
+    assert _rel(*grads) <= 1e-4
+    a, y = (v.to(cuda) for v in _spd(4, 100, seed=5))
+    lbar = torch.from_numpy(rng.standard_normal((4, 100, 100)).astype(
+        np.float32)).to(cuda)
+    out = []
+    for fn in (cholesky_solve_batched, cholesky_solve_plain):
+        aa, yy = a.clone().requires_grad_(True), y.clone().requires_grad_(
+            True)
+        L, z = fn(aa, yy)
+        torch.autograd.backward([L, z], [lbar, yy.detach()])
+        out.append((aa.grad, yy.grad))
+    assert _rel(out[0][0], out[1][0]) <= 1e-4
+    assert _rel(out[0][1], out[1][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(None, 256), (None, 4), (None, 33),
+                                 (None, 200), (None, 1000), (5, 130)])
+def test_b7_kernel_matches_plain(cuda, b, n):
+    a, _ = (v.to(cuda) for v in _spd(b or 1, n, seed=n))
+    a = a if b else a[0]
+    before = cholesky_pallas.launches
+    L = cholesky_pallas(a)
+    torch.cuda.synchronize()
+    assert cholesky_pallas.launches == before + 1
+    ref = cholesky_plain(a)
+    torch.testing.assert_close(L, ref, rtol=0,
+                               atol=5e-6 * float(ref.abs().max()))
+    assert bool(torch.all(torch.triu(L, 1) == 0))
+
+
+@pytest.mark.cuda
+def test_b7_non_pd_and_gradient(cuda):
+    a, _ = (v.to(cuda) for v in _spd(4, 96, seed=1))
+    a[2, 50, 50] = -3.0
+    L = cholesky_pallas(a)
+    torch.cuda.synchronize()
+    assert torch.isnan(L).flatten(1).all(1).tolist() == [False, False, True,
+                                                         False]
+    w = torch.randn(96, 96, device=cuda)
+    grads = []
+    for fn in (cholesky_pallas, cholesky_plain):
+        aa = a[0].clone().requires_grad_(True)
+        torch.sum(w * fn(aa)).backward()
+        grads.append(aa.grad)
+    assert _rel(*grads) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,shape", [
+    (None, 256, (256,)), (None, 256, (256, 1024)), (None, 4, (4, 9)),
+    (None, 200, (200, 130)), (None, 1000, (1000, 17)), (3, 96, (3, 96)),
+    (3, 96, (3, 96, 5)), (None, 70, (4, 70, 3))])
+def test_b8_kernel_matches_plain(cuda, b, n, shape):
+    a, _ = _spd(b or 1, n, seed=n)
+    L = cholesky_plain(a.to(cuda))
+    L = L if b else L[0]
+    y = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+    for fn, ref_fn in ((tri_solve, tri_solve_plain),
+                       (tri_solve_t, tri_solve_t_plain)):
+        before = tri_solve.launches
+        out = fn(L, y)
+        torch.cuda.synchronize()
+        assert tri_solve.launches == before + 1
+        ref = ref_fn(L, y)
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [None, 7])
+def test_b8_gradients_match_plain_and_launch_the_other_kernel(cuda, m):
+    a, _ = _spd(1, 200, seed=9)
+    L0 = cholesky_plain(a.to(cuda))[0]
+    rng = np.random.default_rng(1)
+    shape = (200,) if m is None else (200, m)
+    b0 = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda)
+    grads = []
+    for fn in (solve_chol, lambda l, v: tri_solve_t_plain(
+            l, tri_solve_plain(l, v))):
+        L, b = L0.clone().requires_grad_(True), b0.clone().requires_grad_(
+            True)
+        before = tri_solve.launches
+        torch.sum(w * fn(L, b) ** 2).backward()
+        grads.append((torch.tril(L.grad), b.grad, tri_solve.launches -
+                      before))
+    assert grads[0][2] == 4 and grads[1][2] == 0
+    assert _rel(grads[0][0], grads[1][0]) <= 1e-4
+    assert _rel(grads[0][1], grads[1][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_b7_b8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(TypeError):
+        cholesky_pallas(torch.eye(8, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="n <="):
+        cholesky_pallas(torch.eye(1025, device=cuda))
+    L = torch.eye(8, device=cuda)
+    with pytest.raises(TypeError):
+        tri_solve(L.double(), torch.ones(8, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="B8 takes"):
+        tri_solve(L, torch.ones(9, device=cuda))
+    with pytest.raises(ValueError, match="no kernel"):
+        tri_solve(L, torch.ones(8))
+
+
+@pytest.mark.cuda
+def test_optimize_on_card_launches_b7_b8_and_matches_cpu(cuda):
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-4, 4, (200, 2)).astype(np.float32)
+    y = (np.sin(2 * x[:, 0]) * np.cos(x[:, 1])
+         + rng.normal(0, 0.2, 200)).astype(np.float32)
+    gp = bt.GpRegressor(pallas_chol=True, pallas_solve=True)
+    b5, b7, b8 = sqdist.launches, cholesky_pallas.launches, tri_solve.launches
+    p, lml = gp.optimize(x, y, steps=20)
+    torch.cuda.synchronize()
+    assert cholesky_pallas.launches - b7 == 21
+    assert tri_solve.launches - b8 == 41
+    assert sqdist.launches - b5 == 21
+    ref_p, ref_l = bt.GpRegressor(device="cpu").optimize(x, y, steps=20)
+    assert abs(float(lml) - float(ref_l)) <= 1e-4 * abs(float(ref_l))
+    for k in p:
+        torch.testing.assert_close(p[k].cpu(), ref_p[k], rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -412,7 +568,8 @@ def test_gp_lml_on_card_routes_to_b5_b6_and_matches_cpu(cuda):
         t = torch.from_numpy(theta).to(device)
         p = {"log_lengthscale": t[:, :2], "log_sigma_f": t[:, 2],
              "log_sigma_n": t[:, 3]}
-        return gp.log_marginal_likelihood(p, x, y)
+        return gp._lml_impl(p, torch.from_numpy(x).to(device),
+                            torch.from_numpy(y).to(device))
 
     b5, b6 = sqdist.launches, cholesky_solve_batched.launches
     on_card = lml(cuda)
@@ -434,7 +591,7 @@ def test_dram_over_gp_on_card_launches_b5_b6_twice_a_step(cuda):
     def log_post(theta):
         p = {"log_lengthscale": theta[:, :2], "log_sigma_f": theta[:, 2],
              "log_sigma_n": theta[:, 3]}
-        return (gp.log_marginal_likelihood(p, x, y)
+        return (gp._lml_impl(p, x, y)          # config 4's target: B6
                 - 0.5 * torch.sum((theta / 2) ** 2, -1))
 
     s = bt.Dram(log_post, seed=1, n_chains=16)

@@ -119,12 +119,36 @@ def test_gram_floor_and_non_pd_give_nan_lml():
 
 
 def test_parts_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="B7"):
-        bt.GpRegressor(pallas_chol=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="B8"):
-        bt.GpRegressor(pallas_solve=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="VJP"):
-        bt.GpRegressor(device="cpu").optimize(np.zeros((4, 2)), np.zeros(4))
+    """The kernel flags, once refused, now build and route: with
+    ``pallas_chol`` and ``pallas_solve`` the factor goes through B7's and
+    the solves through B8's autograd Functions (plain forwards on the
+    CPU), and fit, predict and the log-ML give the default path's
+    numbers."""
+    x, y = _data()
+    xs = np.random.default_rng(1).uniform(-4, 4, (9, 2)).astype(np.float32)
+    p = convert.gp_params(_params(THETA), "cpu")
+    plain = bt.GpRegressor(device="cpu")
+    flags = bt.GpRegressor(pallas_chol=True, pallas_solve=True, device="cpu")
+    fit, ref = flags.fit(x, y, p), plain.fit(x, y, p)
+    for name in ("chol", "alpha"):
+        np.testing.assert_allclose(getattr(fit, name).numpy(),
+                                   getattr(ref, name).numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    for out, want in zip(flags.predict(fit, xs), plain.predict(ref, xs)):
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    np.testing.assert_allclose(float(flags.log_marginal_likelihood(p, x, y)),
+                               float(plain.log_marginal_likelihood(p, x, y)),
+                               rtol=1e-6)
+    # the routes: B7's and B8's Functions on the flagged regressor only
+    leaf = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    kmat = flags._gram(leaf, torch.from_numpy(x))
+    chol = flags._cholesky(kmat)
+    assert type(chol.grad_fn).__name__ == "CholeskyBackward"
+    assert type(flags._solve_lower(chol, torch.from_numpy(y)).grad_fn
+                ).__name__ == "_TriSolveBackward"
+    assert type(plain._cholesky(kmat).grad_fn).__name__ != \
+        "CholeskyBackward"
 
 
 N, D, T = 8, 4, 100
