@@ -10,7 +10,10 @@ The user's target is a batched ``log_prob(x[n, d]) -> [n]``. Ported:
 
 - DREAM-zs on the per-generation engine: each generation launches two
   hand-written CUDA kernels, ``ops/distinct_idx.py`` (B3) and
-  ``ops/dream_proposal.py`` (B2).
+  ``ops/dream_proposal.py`` (B2). With ``fused=True`` the generations
+  after burn-in run in chunks of ``archive_thin``, one launch of
+  ``ops/fused_chunk.py`` (B1) and one of B3 a chunk, on the built-in
+  targets ``correlated_gaussian`` and ``gaussian_mixture``.
 - The random-walk family (``Metropolis``, ``AdaptiveMetropolis``,
   ``DrMetropolis``, ``Dram``): per-step, or with ``fused=True`` K steps
   per launch of ``ops/fused_rw_chunk.py`` (B4), which evaluates the
@@ -33,7 +36,7 @@ device::
     import bipymc_tpu_torch as bt
     means = bt.baseline_config3_means(100)
     s = bt.DreamZs(bt.gaussian_mixture(means), n_chains=256, seed=0,
-                   burnin_gens=500, archive_capacity=8192)
+                   burnin_gens=500, archive_capacity=8192, fused=True)
     s.run_mcmc(3000, theta_0)
 
     lp = bt.correlated_gaussian([1.0, -1.0], [[2.0, 0.8], [0.8, 1.0]])

@@ -3,10 +3,10 @@
 Counterpart of ``bipymc_tpu/core/rng.py``. The JAX package folds a key
 per (generation, chain) and draws one block of ``uint32`` words per
 generation; here a ``torch.Generator`` (Philox on CUDA) draws each
-block with :func:`draw_words`: DREAM-zs from one running generator
-(:func:`running_words`), the random-walk family from a generator seeded
-by (key, step) (:class:`StepWords`), so its words do not depend on which
-engine runs a step. Only the word→number conversions must agree with
+block with :func:`draw_words`, seeded by (key, step) (:class:`StepWords`),
+so a step's words do not depend on which engine runs it: DREAM-zs's
+per-generation and fused engines read the same words, and so do the
+random-walk family's. Only the word→number conversions must agree with
 the JAX package, and they do: :func:`bits_to_uniform` bit for bit,
 :func:`uniform_to_normal` up to XLA's float32 inverse-erf.
 
@@ -69,12 +69,6 @@ def uniform_to_normal(u: torch.Tensor, dtype=None) -> torch.Tensor:
     return n.to(u.dtype if dtype is None else dtype)
 
 
-def running_words(gen: torch.Generator):
-    """A word source ``(t, n, n_words, device) -> [n, n_words]`` that
-    draws from one running generator and ignores ``t``."""
-    return lambda t, n, n_words, device: draw_words(gen, n, n_words, device)
-
-
 _MASK64 = (1 << 64) - 1
 
 
@@ -123,17 +117,6 @@ class StepWords:
             torch.randint(-2 ** 31, 2 ** 31, (n, n_words), generator=gen,
                           device=device, dtype=torch.int32, out=out[k])
         return out
-
-
-def seeded_generators(seed: int, n: int, device) -> list:
-    """``n`` independent generators on ``device`` derived from one seed.
-
-    The JAX package splits one key into init / archive / run keys; the
-    port derives one generator seed per stream from NumPy's
-    ``SeedSequence`` so the streams are reproducible and distinct.
-    """
-    return [torch.Generator(device=device).manual_seed(s)
-            for s in seed_ints(seed, n)]
 
 
 def seed_ints(seed: int, n: int) -> list:

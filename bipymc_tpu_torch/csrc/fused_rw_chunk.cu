@@ -11,15 +11,9 @@
 // history row. Comparisons keep IEEE NaN semantics (a NaN acceptance
 // compares false), so this file must not be built with --use_fast_math.
 //
-// The target is evaluated in device code. A CUDA kernel cannot inline an
-// arbitrary user function as Pallas inlines a jaxpr, so the kernel takes
-// the built-in targets' kernel forms (models/targets.py::KernelForm):
-//   0 correlated Gaussian: -0.5 * ((q + log_det) + d log 2pi) with
-//     q = sum_i (sum_j r_j inv[j, i]) r_i, r = y - mean, inv in shared
-//     memory (40 KB at d = 100);
-//   1 isotropic Gaussian mixture: per-mode squared distances, then
-//     torch.logsumexp's max-shifted sum of (log_w + norm) - 0.5 sq / s^2.
-// The wrapper raises for any other target.
+// The target is evaluated in device code through its kernel form
+// (target.cuh, shared with kernel B1); the wrapper raises for any other
+// target.
 //
 // What bounds it on the H100: at the wide shape (K = 50, n = 256,
 // d = 100, DR, correlated Gaussian) it moves 3 K n d 4 B = 15.4 MB
@@ -42,12 +36,14 @@
 
 #include <cmath>
 
+#include "target.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxThreads = 128;
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxModes = 16;
+using bipymc::kMaxModes;
+using bipymc::kMaxThreads;
+using bipymc::kMaxWarps;
+using bipymc::min0;
 
 // p(x) = (e^x - 1)/x - 1 series coefficients, 1/(k+1)!, as core/numerics.py
 __constant__ float kExpm1Coefs[10] = {
@@ -56,9 +52,6 @@ __constant__ float kExpm1Coefs[10] = {
     static_cast<float>(1.0 / 720.0),     static_cast<float>(1.0 / 5040.0),
     static_cast<float>(1.0 / 40320.0),   static_cast<float>(1.0 / 362880.0),
     static_cast<float>(1.0 / 3628800.0), static_cast<float>(1.0 / 39916800.0)};
-
-// min(0, v) that propagates NaN, as torch.clamp_max and jnp.minimum do
-__device__ __forceinline__ float min0(float v) { return v >= 0.f ? 0.f : v; }
 
 __device__ __forceinline__ float log1mexp(float log_a) {
   const float x = log_a >= -1e-30f ? -1e-30f : log_a;   // NaN stays NaN
@@ -69,95 +62,6 @@ __device__ __forceinline__ float log1mexp(float log_a) {
     return logf(-x) + log1pf(p);
   }
   return log1pf(-expf(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// Sum v[0..m) over the block; every thread gets the same totals.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], int m,
-                                          float* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int a = 0; a < NV; ++a) {
-    if (a < m) {
-      const float s = warp_sum(v[a]);
-      if (lane == 0) scratch[warp * NV + a] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < NV; ++a) {
-    if (a < m) {
-      float s = scratch[a];
-      for (int w = 1; w < n_warps; ++w) s += scratch[w * NV + a];
-      v[a] = s;
-    }
-  }
-  __syncthreads();          // scratch is free again
-}
-
-struct Target {
-  int kind;                 // 0 correlated Gaussian, 1 Gaussian mixture
-  const float* c;           // shared: inv [d, d] | means [k, d]
-  const float* mu;          // shared: mean [d] (kind 0)
-  const float* log_w;       // global: [k] (kind 1)
-  int k;                    // modes (kind 1)
-  float f0, f1;             // log_det, d log 2pi | norm, sigma^2
-};
-
-// log density of y (shared, [d]); r is [d] shared scratch. Every thread
-// returns the same value.
-__device__ float eval_target(const Target& tg, const float* y, float* r,
-                             int d, float* scratch) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  if (tg.kind == 0) {
-    for (int j = tid; j < d; j += nt) r[j] = y[j] - tg.mu[j];
-    __syncthreads();
-    float q[1] = {0.f};
-    for (int i = tid; i < d; i += nt) {
-      float s = 0.f;
-      for (int j = 0; j < d; ++j) s += r[j] * tg.c[j * d + i];
-      q[0] += s * r[i];
-    }
-    block_sum<1>(q, 1, scratch);
-    return -0.5f * ((q[0] + tg.f0) + tg.f1);
-  }
-  float sq[kMaxModes];
-#pragma unroll
-  for (int m = 0; m < kMaxModes; ++m) sq[m] = 0.f;
-  for (int j = tid; j < d; j += nt) {
-    const float yj = y[j];
-#pragma unroll
-    for (int m = 0; m < kMaxModes; ++m) {
-      if (m < tg.k) {
-        const float diff = yj - tg.c[m * d + j];
-        sq[m] += diff * diff;
-      }
-    }
-  }
-  block_sum<kMaxModes>(sq, tg.k, scratch);
-  float mx = -INFINITY;
-#pragma unroll
-  for (int m = 0; m < kMaxModes; ++m) {
-    if (m < tg.k) {
-      sq[m] = (tg.log_w[m] + tg.f0) - (0.5f * sq[m]) / tg.f1;
-      mx = fmaxf(mx, sq[m]);
-    }
-  }
-  const float shift = isinf(mx) ? 0.f : mx;   // torch.logsumexp's rule
-  float s = 0.f;
-#pragma unroll
-  for (int m = 0; m < kMaxModes; ++m)
-    if (m < tg.k) s += expf(sq[m] - shift);
-  return logf(s) + shift;
 }
 
 __global__ void __launch_bounds__(kMaxThreads) fused_rw_chunk_kernel(
@@ -175,28 +79,14 @@ __global__ void __launch_bounds__(kMaxThreads) fused_rw_chunk_kernel(
   const long long i = blockIdx.x;
 
   // shared layout: constants, then theta, y1, y2, r (each [d])
-  const int n_const = kind == 0 ? d * d + d : n_modes * d;
+  const int n_const = bipymc::target_consts(kind, d, n_modes);
   float* s_c = smem;
   float* s_x = smem + n_const;
   float* s_y1 = s_x + d;
   float* s_y2 = s_y1 + d;
   float* s_r = s_y2 + d;
-  Target tg;
-  tg.kind = kind;
-  tg.c = s_c;
-  tg.k = n_modes;
-  tg.f0 = f0;
-  tg.f1 = f1;
-  if (kind == 0) {
-    for (int a = tid; a < d * d; a += nt) s_c[a] = c1[a];      // inv
-    for (int a = tid; a < d; a += nt) s_c[d * d + a] = c0[a];  // mean
-    tg.mu = s_c + d * d;
-    tg.log_w = nullptr;
-  } else {
-    for (int a = tid; a < n_modes * d; a += nt) s_c[a] = c0[a];  // means
-    tg.mu = nullptr;
-    tg.log_w = c1;
-  }
+  const bipymc::Target tg =
+      bipymc::load_target(kind, c0, c1, n_modes, f0, f1, d, s_c);
   for (int j = tid; j < d; j += nt) s_x[j] = x0[i * d + j];
   float lp = logp0[i];
   __syncthreads();
@@ -207,7 +97,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_rw_chunk_kernel(
     const float* sc = scal + row * 4;
     for (int j = tid; j < d; j += nt) s_y1[j] = s_x[j] + dy1r[j];
     __syncthreads();
-    const float l1 = eval_target(tg, s_y1, s_r, d, scratch);
+    const float l1 = bipymc::eval_target(tg, s_y1, s_r, d, scratch);
     const float log_a1 = isfinite(l1) ? min0(l1 - lp) : -INFINITY;
     const bool acc1 = sc[2] < log_a1;
     bool acc2 = false;
@@ -216,7 +106,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_rw_chunk_kernel(
       const float* dy2r = dy2 + row * d;
       for (int j = tid; j < d; j += nt) s_y2[j] = s_x[j] + dy2r[j];
       __syncthreads();
-      l2 = eval_target(tg, s_y2, s_r, d, scratch);
+      l2 = bipymc::eval_target(tg, s_y2, s_r, d, scratch);
       const float log_a1_rev = min0(l1 - l2);
       const float lq_diff = -0.5f * (sc[1] - sc[0]);
       const float log_num = l2 + log1mexp(log_a1_rev);
@@ -260,7 +150,7 @@ extern "C" int fused_rw_chunk_launch(
     int threads, void* x_hist, void* logp_hist, void* accepted, void* stage,
     void* stream) {
   if (n == 0 || K == 0) return 0;
-  const int n_const = kind == 0 ? d * d + d : n_modes * d;
+  const int n_const = bipymc::target_consts(kind, d, n_modes);
   const size_t smem = sizeof(float) * (static_cast<size_t>(n_const) + 4 * d);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

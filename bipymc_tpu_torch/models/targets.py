@@ -9,8 +9,9 @@ batch dimension written out is the PyTorch form of that map.
 A CUDA kernel cannot inline an arbitrary user function the way a Pallas
 kernel inlines a jaxpr, so each built-in target also carries a
 :class:`KernelForm`: the name of its device function and its constants.
-Kernel B4 (``ops/fused_rw_chunk.py``) evaluates targets through it and
-refuses a target that has none.
+Kernels B1 (``ops/fused_chunk.py``) and B4 (``ops/fused_rw_chunk.py``)
+evaluate targets through it (``csrc/target.cuh``) and refuse a target
+that has none.
 """
 
 import numpy as np
@@ -42,7 +43,7 @@ def stratified_mode_init(gen, means, n, var=4.0, dtype=torch.float32,
 class KernelForm:
     """A built-in target as a CUDA kernel evaluates it in device code.
 
-    ``name`` names the device function (``csrc/fused_rw_chunk.cu``);
+    ``name`` names the device function (``csrc/target.cuh``);
     ``arrays`` and ``scalars`` hold its constants. :meth:`tensors` moves
     the arrays to a device once per (device, dtype): the kernels read them
     in float32, and the target's torch form reads them in its input's
@@ -65,12 +66,44 @@ class KernelForm:
 
 # the targets that carry a kernel form, by KernelForm.name
 KERNEL_TARGETS = ("correlated_gaussian", "gaussian_mixture")
+MAX_MODES = 16                   # kMaxModes in csrc/target.cuh
 
 
 def kernel_form(log_prob):
     """The target's :class:`KernelForm`, or None for a target that has
     none (any user function)."""
     return getattr(log_prob, "kernel_form", None)
+
+
+def kernel_operands(log_prob, device, d: int, kernel: str):
+    """``(kind, c0, c1, n_modes, f0, f1)``: the target's kernel form as
+    ``csrc/target.cuh::load_target`` takes it, with the arrays float32 on
+    ``device``. Raises ``ValueError``, naming ``kernel``, for a target
+    with no kernel form, one of another dimension than ``d``, or a
+    mixture of more than :data:`MAX_MODES` modes."""
+    form = kernel_form(log_prob)
+    if form is None:
+        raise ValueError(
+            f"{kernel} on {device}: the target has no kernel form; the "
+            f"kernel evaluates only {', '.join(KERNEL_TARGETS)} "
+            "(bipymc_tpu_torch.models.targets)")
+    t = form.tensors(device)
+    if form.name == "correlated_gaussian":
+        if t["mean"].shape != (d,):
+            raise ValueError(f"the target is {t['mean'].shape[0]}-d, the "
+                             f"chains {d}-d")
+        return (0, t["mean"], t["inv"], 0, form.scalars["log_det"],
+                form.scalars["log_2pi_d"])
+    if form.name == "gaussian_mixture":
+        k, dm = t["means"].shape
+        if dm != d:
+            raise ValueError(f"the target is {dm}-d, the chains {d}-d")
+        if k > MAX_MODES:
+            raise ValueError(f"{kernel} takes at most {MAX_MODES} modes, "
+                             f"got {k}")
+        return (1, t["means"], t["log_w"], k, form.scalars["norm"],
+                form.scalars["sigma2"])
+    raise ValueError(f"no device function for kernel form {form.name!r}")
 
 
 def correlated_gaussian(mean, cov):

@@ -8,8 +8,8 @@ header, so a build takes seconds instead of the minutes a
 ``torch/extension.h`` takes. All sources are compiled at once, one
 ``nvcc`` process each, at the first launch of any kernel; the libraries
 go to ``build/torch_kernels/`` at the root of the checkout, named by a
-hash of their source, so an edited source is rebuilt and an unchanged
-one is reused.
+hash of their source and of the shared headers (``csrc/*.cuh``), so an
+edited source is rebuilt and an unchanged one is reused.
 
 Pointers and the current CUDA stream pass as Python ints; each C entry
 point returns the launch's ``cudaError_t``, which :func:`check` turns
@@ -43,6 +43,10 @@ SIGNATURES = {
     "fused_rw_chunk": ("fused_rw_chunk_launch",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                         _F, _F, _I, _P, _P, _P, _P, _P]),
+    "fused_chunk": ("fused_chunk_launch",
+                    [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I,
+                     _I, _F, _F, _F, _I, _P, _P, _I, _F, _F, _P, _P, _P,
+                     _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),
@@ -63,7 +67,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers (*.cuh) are part of every source's identity
+    src = b"".join(p.read_bytes() for p in [SRC_DIR / f"{name}.cu"]
+                   + sorted(SRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
 

@@ -13,24 +13,24 @@ the two engines share one formula. :func:`fused_rw_chunk` has the
 signature and returns of ``fused_rw_chunk_pallas``: a tensor on the CPU
 goes to the plain version, which takes any batched target; a CUDA tensor
 goes to ``csrc/fused_rw_chunk.cu``, which evaluates the built-in
-targets' kernel forms (``models/targets.py``), or the call raises.
+targets' kernel forms (``models/targets.py``, ``csrc/target.cuh``), or
+the call raises.
 ``fused_rw_chunk.launches`` counts the kernel's launches.
 """
 
 import torch
 
 from bipymc_tpu_torch.core.numerics import log1mexp
-from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
+from bipymc_tpu_torch.models.targets import MAX_MODES, kernel_operands
 from bipymc_tpu_torch.ops import _build
 
 # lanes of the packed per-step scalars [K, n, 4]
 S_SZ1, S_SW, S_LU1, S_LU2 = 0, 1, 2, 3
 N_SCAL = 4
-_MAX_MODES = 16                  # kMaxModes in the kernel
-_MAX_WARPS = 4                   # kMaxWarps in the kernel
+_MAX_WARPS = 4                   # kMaxWarps in csrc/block_reduce.cuh
 # bytes of dynamic shared memory a block may use: the card's 232448 less
 # the kernel's static reduction scratch, float[kMaxWarps * kMaxModes]
-_MAX_SMEM = 232448 - 4 * _MAX_WARPS * _MAX_MODES
+_MAX_SMEM = 232448 - 4 * _MAX_WARPS * MAX_MODES
 
 
 def rw_select(x, lp, y1, l1, log_u1, y2=None, l2=None, log_u2=None,
@@ -116,7 +116,8 @@ def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
     if x0.device.type == "cpu":
         return fused_rw_chunk_plain(x0, logp0, dy1, dy2, scal, log_prob,
                                     delayed)
-    kind, c0, c1, n_modes, f0, f1 = _target_operands(log_prob, x0, d)
+    kind, c0, c1, n_modes, f0, f1 = kernel_operands(
+        log_prob, x0.device, d, "fused_rw_chunk")
     operands = [x0, logp0, dy1, scal, c0, c1] + ([dy2] if delayed else [])
     _check_cuda(x0, operands)
     n_const = d * d + d if kind == 0 else n_modes * d
@@ -142,33 +143,6 @@ def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
 
 
 fused_rw_chunk.launches = 0
-
-
-def _target_operands(log_prob, x0, d):
-    """(kind, c0, c1, n_modes, f0, f1) of the target's kernel form."""
-    form = kernel_form(log_prob)
-    if form is None:
-        raise ValueError(
-            f"fused_rw_chunk on {x0.device}: the target has no kernel form; "
-            f"the kernel evaluates only {', '.join(KERNEL_TARGETS)} "
-            "(bipymc_tpu_torch.models.targets)")
-    t = form.tensors(x0.device)
-    if form.name == "correlated_gaussian":
-        if t["mean"].shape != (d,):
-            raise ValueError(f"the target is {t['mean'].shape[0]}-d, the "
-                             f"chains {d}-d")
-        return (0, t["mean"], t["inv"], 0, form.scalars["log_det"],
-                form.scalars["log_2pi_d"])
-    if form.name == "gaussian_mixture":
-        k, dm = t["means"].shape
-        if dm != d:
-            raise ValueError(f"the target is {dm}-d, the chains {d}-d")
-        if k > _MAX_MODES:
-            raise ValueError(f"the kernel takes at most {_MAX_MODES} modes, "
-                             f"got {k}")
-        return (1, t["means"], t["log_w"], k, form.scalars["norm"],
-                form.scalars["sigma2"])
-    raise ValueError(f"no device function for kernel form {form.name!r}")
 
 
 def _check_cuda(x0, operands):

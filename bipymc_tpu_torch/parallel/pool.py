@@ -5,14 +5,15 @@ population lives on one device and each step is one call of the batched
 step. The pool takes each step's random words from a word source
 ``words(t, n, n_words, device) -> [n, n_words]`` and hands them to the
 step, so the step itself is the same function the tests feed with the
-JAX package's words. DREAM-zs draws from one running generator
-(``core/rng.running_words``); the random-walk family from
-``core/rng.StepWords``, whose words depend on the global step alone.
+JAX package's words. Both families draw from ``core/rng.StepWords``,
+whose words depend on the global step alone, so a fused engine reads
+the same words as the step.
 
 ``run_until`` is a host loop over chunks of steps. The R̂ test reads one
 device value per chunk, after the warm-up chunks; no step waits for the
 device. A fused ``chunk_runner`` may run whole chunks instead of the
-step, its history folded into R̂ as one block.
+step (from step ``fused_after`` on), its history folded into R̂ as one
+block, or its own moments merged.
 """
 
 import math
@@ -22,7 +23,7 @@ import torch
 
 from bipymc_tpu_torch.core.scan import run_scan_thinned
 from bipymc_tpu_torch.utils.streaming import (
-    rhat_compute, rhat_init, rhat_update, rhat_update_block)
+    rhat_compute, rhat_init, rhat_merge, rhat_update, rhat_update_block)
 
 
 def _default_position(state):
@@ -65,14 +66,18 @@ class ChainPool:
 
     def run_until(self, state, words: Callable, rhat_tol=1.05, chunk=100,
                   max_chunks=200, warmup_chunks=2, position_fn=None,
-                  t0: int = 0, chunk_runner: Callable | None = None):
+                  t0: int = 0, chunk_runner: Callable | None = None,
+                  fused_after: int = 0):
         """Run chunks of ``chunk`` steps until R̂ < rhat_tol.
 
         The moments restart after ``warmup_chunks`` chunks, so early
         transients stay out of R̂. ``chunk_runner``: a fused runner
         ``(state, words, n_steps, t0) -> (state, history)`` that runs
-        every chunk in place of the step, its ``history["x"]`` folded by
-        ``rhat_update_block``; its ``position_field`` must be the field
+        every chunk starting at step ``fused_after`` or later in place
+        of the step (the step runs the chunks before, e.g. DREAM-zs's
+        burn-in); its ``history["rhat"]`` moments are merged by
+        ``rhat_merge``, or else its ``history["x"]`` folded by
+        ``rhat_update_block``. Its ``position_field`` must be the field
         ``position_fn`` reads, ``chunk`` a multiple of its
         ``chunk_multiple`` and ``t0`` of its ``align``. Returns
         (final_state, info) with ``steps``, the final ``rhat`` [d], and
@@ -114,9 +119,10 @@ class ChainPool:
             if ci == warmup_chunks:
                 rc = fresh()                 # the monitored window starts
             t_start = t0 + ci * chunk
-            if chunk_runner is not None:
+            if chunk_runner is not None and t_start >= fused_after:
                 state, hist = chunk_runner(state, words, chunk, t_start)
-                rc = rhat_update_block(rc, hist["x"])
+                rc = (rhat_merge(rc, hist["rhat"]) if "rhat" in hist
+                      else rhat_update_block(rc, hist["x"]))
             else:
                 for t in range(t_start, t_start + chunk):
                     state, _ = one(state, t)

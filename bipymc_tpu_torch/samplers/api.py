@@ -13,11 +13,10 @@ written out). Every entry point runs on ``device="cuda"`` unless the
 caller passes another device; nothing moves to the CPU because CUDA is
 missing.
 
-Randomness: for DREAM-zs one seed gives three generators on the device
-(start points, initial archive, run); for the random-walk family one
-generator for the start points and a key whose words depend on the
-global step alone (``core/rng.StepWords``), so its per-step and fused
-engines read the same words. Either way ``reset()`` reruns identically
+Randomness: one seed gives a generator for the start points (and, for
+DREAM-zs, one for the initial archive) and a key whose words depend on
+the global step alone (``core/rng.StepWords``), so the per-generation
+and fused engines read the same words. ``reset()`` reruns identically
 and a continued run draws fresh words from where the last run stopped.
 """
 
@@ -26,17 +25,19 @@ import warnings
 import numpy as np
 import torch
 
-from bipymc_tpu_torch.core.rng import (StepWords, running_words,
-                                        seed_ints, seeded_generators)
+from bipymc_tpu_torch.core.rng import StepWords, seed_ints
 from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
 from bipymc_tpu_torch.parallel.pool import ChainPool
 from bipymc_tpu_torch.samplers import dream, rw
+from bipymc_tpu_torch.samplers.dream_fused import (check_fusable,
+                                                   make_chunk_runner)
 from bipymc_tpu_torch.samplers.rw_fused import (check_rw_fusable,
                                                 make_rw_chunk_runner)
 from bipymc_tpu_torch.utils.diagnostics import acceptance_fraction
 from bipymc_tpu_torch.utils.init import var_ball
 
-_FUSED_ITEM = "ROADMAP Queue A item 5 (DREAM-zs fused engine)"
+_FUSED_ITEM = ("ROADMAP Queue A item 18 (the rest of the DREAM-zs fused "
+               "engine)")
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _API_ITEM = "ROADMAP Queue A item 7 (pool and API)"
 _RW_BLOCK_ITEM = ("ROADMAP Queue A item 10 (RW family: user targets in "
@@ -172,36 +173,62 @@ class McmcSampler:
 
 
 class DreamZs(McmcSampler):
-    """DREAM-zs: archive-Z DE proposals + snooker + CR adaptation, on the
-    per-generation engine (``samplers/dream.py``), one device.
+    """DREAM-zs: archive-Z DE proposals + snooker + CR adaptation, on one
+    device.
 
-    The fused multi-generation engine (``fused=True`` and its knobs) and
-    the mesh are not ported yet; passing any of them raises
-    ``NotImplementedError``.
+    ``fused=True`` runs the aligned post-burn-in generations on the fused
+    engine (``samplers/dream_fused.py``: ``archive_thin`` generations per
+    launch of kernel B1), with the per-generation engine
+    (``samplers/dream.py``) for burn-in and any unaligned head or tail,
+    and for every run with ``thin != 1``. Both engines read the same words
+    for the same generation (``core/rng.StepWords``), so they take the
+    same decisions. The fused engine is float32-only and needs a target
+    with a kernel form (``models/targets.KERNEL_TARGETS``). Not ported,
+    raising ``NotImplementedError``: ``mesh=``, ``fused_rng="kernel"``,
+    ``fused_z_update > 1``, ``fused_gather`` other than ``"block"`` and
+    ``log_prob_block``.
     """
 
     def __init__(self, log_like_fn, n_chains=8, seed=0, dtype=torch.float32,
                  mesh=None, archive_capacity=None, n_archive_init=None,
-                 fused=False, fused_rng=None, fused_z_update=None,
-                 fused_gather=None, log_prob_block=None, device="cuda",
+                 fused=False, fused_rng="stream", fused_z_update=1,
+                 fused_gather="block", log_prob_block=None, device="cuda",
                  **config_kw):
         if mesh is not None:
             raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
-        fused_opts = {"fused": fused or None, "fused_rng": fused_rng,
-                      "fused_z_update": fused_z_update,
-                      "fused_gather": fused_gather,
-                      "log_prob_block": log_prob_block}
-        passed = [k for k, v in fused_opts.items() if v is not None]
-        if passed:
+        if fused_rng not in ("stream", "kernel"):
+            raise ValueError(
+                f"fused_rng={fused_rng!r}: expected 'stream' or 'kernel'")
+        unported = [name for name, v, default in (
+            ("fused_rng", fused_rng, "stream"),
+            ("fused_z_update", fused_z_update, 1),
+            ("fused_gather", fused_gather, "block"),
+            ("log_prob_block", log_prob_block, None)) if v != default]
+        if unported:
             raise NotImplementedError(
-                f"{passed}: the fused engine is not ported: {_FUSED_ITEM}")
+                f"{unported}: not ported (the fused engine runs stream mode, "
+                "one archive update a chunk, torch's gather and the "
+                f"built-in targets): {_FUSED_ITEM}")
         super().__init__(log_like_fn, seed=seed, dtype=dtype, device=device)
         self.n_chains = int(n_chains)
         self.cfg = dream.DreamConfig(n_chains=self.n_chains, **config_kw)
         dream.check_config(self.cfg, self.device)
         self.archive_capacity = archive_capacity
         self.n_archive_init = n_archive_init
-        self._gen_run = None
+        self.fused = bool(fused)
+        self._words = None
+        if self.fused:
+            check_fusable(self.cfg)
+            if dtype != torch.float32:
+                raise ValueError("fused=True is float32-only (kernel B1 "
+                                 "computes in float32)")
+            if kernel_form(log_like_fn) is None:
+                raise ValueError(
+                    "fused=True needs a target with a kernel form, which "
+                    "kernel B1 evaluates in device code: "
+                    f"{', '.join(KERNEL_TARGETS)} "
+                    "(bipymc_tpu_torch.models.targets); run other targets "
+                    "with fused=False")
         self._pool_obj = ChainPool(
             step=dream.make_step(log_like_fn, self.cfg),
             n_words=lambda d: dream.n_words(self.cfg, d),
@@ -213,15 +240,17 @@ class DreamZs(McmcSampler):
                 "accepted": info.accepted, "snooker": info.snooker}
 
     def reset(self):
-        self._gen_run = None
+        self._words = None
         return super().reset()
 
     def _ensure_state(self, theta_0, spread, n_gens_hint,
                       auto_capacity_cap=65536):
         if self._continuing(theta_0, spread=spread):
             return self._final_state
-        g_init, g_z, self._gen_run = seeded_generators(
-            self.seed, 3, self.device)
+        init_seed, z_seed, run_key = seed_ints(self.seed, 3)
+        g_init = torch.Generator(device=self.device).manual_seed(init_seed)
+        g_z = torch.Generator(device=self.device).manual_seed(z_seed)
+        self._words = StepWords(run_key)
         x0 = _as_2d_theta0(theta_0, self.n_chains, g_init, spread,
                            self.dtype, self.device)
         capacity = self.archive_capacity
@@ -247,10 +276,33 @@ class DreamZs(McmcSampler):
             raise NotImplementedError(
                 f"progress_every is not ported: {_API_ITEM}")
         state = self._ensure_state(theta_0, spread, n_gens)
-        final_state, history = self._pool_obj.run(
-            state, running_words(self._gen_run), n_gens, thin=thin,
-            t0=self._steps_run)
-        self._store(final_state, history, n_gens)
+        if not (self.fused and thin == 1):
+            final_state, history = self._pool_obj.run(
+                state, self._words, n_gens, thin=thin, t0=self._steps_run)
+            self._store(final_state, history, n_gens)
+            return self
+        # [per-generation: burn-in + alignment] → [fused steady state] →
+        # [per-generation remainder], each stored as its own history chunk
+        G = self.cfg.archive_thin
+        t = self._steps_run
+        n1 = max(0, self.cfg.burnin_gens - t)
+        if (t + n1) % G:
+            n1 += G - (t + n1) % G
+        n1 = min(n1, n_gens)
+        n2 = (n_gens - n1) // G * G
+        for kind, n_seg in (("per_gen", n1), ("fused", n2),
+                            ("per_gen", n_gens - n1 - n2)):
+            if n_seg == 0:
+                continue
+            t = self._steps_run
+            if kind == "fused":
+                final_state, history = make_chunk_runner(
+                    self.log_like_fn, self.cfg)(state, self._words, n_seg, t)
+            else:
+                final_state, history = self._pool_obj.run(
+                    state, self._words, n_seg, thin=1, t0=t)
+            self._store(final_state, history, n_seg)
+            state = final_state
         return self
 
     def run_mcmc_until(self, theta_0=None, rhat_tol=1.05, chunk=100,
@@ -260,17 +312,32 @@ class DreamZs(McmcSampler):
         Keeps no history; returns a dict with ``steps`` taken, the final
         ``rhat`` [d], and the streamed per-chain ``mean``/``var``
         ([n_chains, d]), as host NumPy.
+
+        With ``fused=True`` ``chunk`` is rounded up to a multiple of
+        ``archive_thin``, and the chunks that start after burn-in run on
+        the fused engine, unless the run continues from a generation
+        that is not a multiple of ``archive_thin``: that run stays on the
+        per-generation engine.
         """
+        chunk_runner, fused_after = None, 0
+        if self.fused:
+            G = self.cfg.archive_thin
+            if chunk % G:
+                chunk += G - chunk % G
+            if self._steps_run % G == 0:
+                chunk_runner = make_chunk_runner(self.log_like_fn, self.cfg,
+                                                 collect="rhat")
+                fused_after = self.cfg.burnin_gens
         # the auto ring is capped at 32 population snapshots, as in the
         # JAX package: chunk·max_chunks is a worst case a run rarely nears
         state = self._ensure_state(
             theta_0, spread, chunk * max_chunks,
             auto_capacity_cap=max(8192, 32 * self.n_chains))
         final_state, info = self._pool_obj.run_until(
-            state, running_words(self._gen_run), rhat_tol=rhat_tol,
-            chunk=chunk,
+            state, self._words, rhat_tol=rhat_tol, chunk=chunk,
             max_chunks=max_chunks, warmup_chunks=warmup_chunks,
-            t0=self._steps_run)
+            t0=self._steps_run, chunk_runner=chunk_runner,
+            fused_after=fused_after)
         self._final_state = final_state
         self._sync()
         self._steps_run += int(info["steps"])

@@ -16,7 +16,9 @@ The generation counter is a host int, so the schedule (jump, burn-in,
 outlier check, archive append) is decided on the host and no generation
 reads a device scalar. The two kernels of the step, B3 (row indices)
 and B2 (proposal), go through their dispatchers: on the card they
-launch the CUDA kernels, on the CPU they run the plain versions.
+launch the CUDA kernels, on the CPU they run the plain versions. The
+fused engine (``samplers/dream_fused.py``) runs the same generation,
+``archive_thin`` at a time after burn-in.
 """
 
 from typing import Callable, NamedTuple
@@ -28,6 +30,7 @@ from bipymc_tpu_torch.ensemble.archive import (
     Archive, archive_append, archive_init)
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+from bipymc_tpu_torch.ops.fused_chunk import metropolis_select
 
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _OFF_DEFAULT_KERNELS = "ROADMAP Queue B"
@@ -219,14 +222,9 @@ def make_step(log_prob: Callable, cfg: DreamConfig) -> Callable:
             b=cfg.b, b_star=cfg.b_star)
 
         # Metropolis accept with the snooker Jacobian; non-finite → reject
-        logp_star = log_prob(x_star)
-        log_u = torch.log(u_acc)
-        log_alpha = torch.clamp_max(logp_star - state.logp + log_jac, 0.0)
-        log_alpha = torch.where(torch.isfinite(logp_star), log_alpha,
-                                -torch.inf)
-        acc = log_u < log_alpha
-        x_new = torch.where(acc[:, None], x_star, x)
-        logp_new = torch.where(acc, logp_star, state.logp)
+        x_new, logp_new, acc, _ = metropolis_select(
+            x, state.logp, x_star, log_prob(x_star), log_jac,
+            torch.log(u_acc))
         logp_sum = state.logp_sum + logp_new
 
         cr_p, cr_cum = state.cr_p, state.cr_cum

@@ -1,0 +1,174 @@
+"""Chunked fused engine for steady-state DREAM-zs.
+
+Counterpart of ``bipymc_tpu/samplers/dream_fused.py`` on one device,
+stream mode: a host loop over chunks of G = ``archive_thin``
+generations, each (a) a few torch ops that make the chunk's operands
+from the same words as the per-generation engine (``core/rng.
+StepWords``: the words of generation t depend on t alone), draw the
+distinct archive rows with kernel B3 and gather them, and pack the
+per-chain scalars with the frozen CR table, then (b) ONE launch of
+kernel B1 (``ops/fused_chunk.py``) for all G generations, then (c) the
+archive append of the chunk's last generation.
+
+Why G = ``archive_thin``: the per-generation engine appends to the
+archive only after generation ``gen % archive_thin == archive_thin − 1``
+has proposed, so the archive is constant over an aligned chunk, and
+every row the chunk reads can be gathered before the kernel runs. CR
+adaptation and the outlier reset stop at ``burnin_gens``, so after
+burn-in the chunk's scalars depend on the words alone. The fused engine
+thus takes the per-generation engine's decisions: the same words, the
+same rows, the same scalars and the same math (B2's proposal and
+``metropolis_select``), up to float re-association on the card.
+
+Not ported (``samplers/api.py`` raises for each, naming its ROADMAP
+item): the mesh, ``rng="kernel"``, ``z_update_every > 1``, the gather
+modes and ``log_prob_block``. ``_GATHER_MODE``
+(``bipymc_tpu/samplers/dream_fused.py:85-103``) chose among TPU
+lowerings of one gather; here the gather is torch indexing.
+"""
+
+from typing import Callable
+
+import torch
+
+from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
+from bipymc_tpu_torch.ensemble.archive import archive_append
+from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
+from bipymc_tpu_torch.ops.fused_chunk import run_fused_chunk
+from bipymc_tpu_torch.samplers.dream import (DreamConfig, DreamState,
+                                             n_rows, n_words)
+from bipymc_tpu_torch.utils.streaming import rhat_init, rhat_update_block
+
+_MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
+
+
+def validate_fused_segment(cfg: DreamConfig, t0: int):
+    """Check a segment start is archive-aligned and post-burn-in."""
+    G = cfg.archive_thin
+    if t0 % G != 0:
+        raise ValueError(f"t0={t0} not archive-aligned (thin={G})")
+    if t0 < cfg.burnin_gens:
+        raise ValueError(
+            f"fused engine is post-burn-in only (t0={t0} < "
+            f"burnin_gens={cfg.burnin_gens}); run the per-generation "
+            "engine through burn-in first")
+
+
+def check_fusable(cfg: DreamConfig, mesh=None):
+    """Raise if the fused engine cannot reproduce this configuration."""
+    if not cfg.use_archive:
+        raise ValueError("fused engine requires use_archive=True "
+                         "(population-DREAM gathers the live population)")
+    if cfg.shard_archive:
+        raise ValueError("fused engine requires a replicated archive "
+                         "(shard_archive=True uses the per-generation "
+                         "engine's ring path)")
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
+
+
+def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
+    """Kernel B1's operands for generations t0 … t0 + G − 1 from the
+    chunk-start state: ``(rows [G, n, k, d], u_mask, u_e, eps [G, n, d],
+    scal [G, n, 6])``, built as ``samplers/dream.py``'s step builds one
+    generation's (``words`` has ``block``, as ``core/rng.StepWords``)."""
+    x = state.x
+    n, d = x.shape
+    dtype, device = x.dtype, x.device
+    G = cfg.archive_thin
+    k = n_rows(cfg)
+    n_pairs = cfg.delta_max
+    blk = words.block(t0, G, n, n_words(cfg, d), device)   # [G, n, words]
+    u_all = bits_to_uniform(blk, dtype)
+    u_scal = u_all[..., 0:3]
+    u_cr = u_all[..., 3]
+    off = 5 + k
+    u_mask = u_all[..., off:off + d]
+    u_e = u_all[..., off + d:off + 2 * d]
+    eps = uniform_to_normal(u_all[..., off + 2 * d:])
+    # every generation of the chunk samples the chunk-start archive
+    row_idx = distinct_idx(blk.view(G * n, -1)[:, 5:off], k,
+                           state.archive.fill)
+    rows = state.archive.buf[row_idx].view(G, n, k, d)
+    # the scalars as the step packs them, with the frozen CR table
+    cr_idx = torch.clamp_max(
+        torch.sum(u_cr[..., None] >= state.cr_cum, dim=-1), cfg.n_cr - 1)
+    delta = torch.clamp_max(
+        1.0 + torch.floor(u_scal[..., 1] * n_pairs), float(n_pairs))
+    cr = (cr_idx + 1).to(dtype) / cfg.n_cr
+    gamma_s = cfg.snooker_lo + \
+        (cfg.snooker_hi - cfg.snooker_lo) * u_scal[..., 2]
+    is_snk = (u_scal[..., 0] < cfg.p_snooker).to(dtype)
+    ts = torch.arange(t0, t0 + G, device=device)
+    jump = ((ts % cfg.jump_interval) == cfg.jump_interval - 1).to(dtype)
+    gj = jump[:, None].expand(G, n)
+    if cfg.jump_full_cr:
+        cr = torch.where(gj > 0.5, 1.0, cr)
+    scal = torch.stack([delta, cr, gamma_s, is_snk, gj,
+                        torch.log(u_all[..., 4])], dim=-1)
+    return rows, u_mask, u_e, eps, scal
+
+
+def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
+                      collect: str = "all") -> Callable:
+    """Build ``run(state, words, n_gens, t0) -> (state, history)``.
+
+    n_gens must be a multiple of G = ``cfg.archive_thin``; ``t0`` (the
+    state's generation counter) must be a multiple of G and at least
+    ``cfg.burnin_gens``. words: a word source with ``block``
+    (``core/rng.StepWords``). history holds ``logp``, ``accepted`` and
+    ``snooker`` ([n_gens, n]) and, with ``collect="all"``, ``x``
+    ([n_gens, n, d]); ``collect="stats"`` keeps no positions;
+    ``collect="rhat"`` folds them chunk by chunk into per-chain moments,
+    returned as ``history["rhat"]`` (what ``ChainPool.run_until``
+    merges).
+    """
+    if collect not in ("all", "stats", "rhat"):
+        raise ValueError(
+            f"collect={collect!r}: expected 'all', 'stats' or 'rhat'")
+    check_fusable(cfg)
+    G = cfg.archive_thin
+    kw = dict(n_pairs=cfg.delta_max, b=cfg.b, b_star=cfg.b_star)
+
+    def runner(state: DreamState, words, n_gens: int, t0: int):
+        if n_gens % G != 0:
+            raise ValueError(f"n_gens={n_gens} not a multiple of the chunk "
+                             f"length archive_thin={G}")
+        validate_fused_segment(cfg, t0)
+        n, d = state.x.shape
+        st = state
+        rc = rhat_init(n, d, st.x.dtype, st.x.device)
+        xs, lps, accs, snks = [], [], [], []
+        for c0 in range(t0, t0 + n_gens, G):
+            rows, u_mask, u_e, eps, scal = chunk_operands(st, words, c0, cfg)
+            xh, lph, acc = run_fused_chunk(st.x, st.logp, rows, u_mask, u_e,
+                                           eps, scal, log_prob, d_true=d,
+                                           **kw)
+            st = DreamState(
+                x=xh[-1], logp=lph[-1],
+                archive=archive_append(st.archive, xh[-1]),
+                cr_p=st.cr_p, cr_cum=st.cr_cum, cr_jump=st.cr_jump,
+                cr_count=st.cr_count,
+                logp_sum=st.logp_sum + torch.sum(lph, dim=0),
+                gen=st.gen + G)
+            if collect == "all":
+                xs.append(xh)
+            elif collect == "rhat":
+                rc = rhat_update_block(rc, xh)
+            lps.append(lph)
+            accs.append(acc)
+            snks.append(scal[..., 3] > 0.5)
+        hist = {"logp": torch.cat(lps), "accepted": torch.cat(accs),
+                "snooker": torch.cat(snks)}
+        if collect == "all":
+            hist["x"] = torch.cat(xs)
+        elif collect == "rhat":
+            hist["rhat"] = rc
+        return st, hist
+
+    # the contract ChainPool.run_until checks at its entry: chunk lengths
+    # and chunk starts are multiples of G; the history records state.x
+    runner.align = G
+    runner.chunk_multiple = G
+    runner.position_field = "x"
+    return runner

@@ -52,6 +52,20 @@ def rhat_update_block(carry: RhatCarry, xs: torch.Tensor) -> RhatCarry:
     return RhatCarry(n=n, mean=mean, m2=m2)
 
 
+def rhat_merge(a: RhatCarry, b: RhatCarry) -> RhatCarry:
+    """Merge two moment carries (Chan et al. pairwise combine): equal to
+    folding b's snapshots into a, up to float re-association. The count
+    fractions are rounded in float32, as the JAX package's are."""
+    n = a.n + b.n
+    delta = b.mean - a.mean
+    frac = (float(np.float32(b.n) / np.float32(max(n, 1.0))) if n > 0
+            else 0.0)
+    wgt = float(np.float32(a.n) * np.float32(frac))
+    mean = a.mean + delta * frac
+    m2 = a.m2 + b.m2 + delta ** 2 * wgt
+    return RhatCarry(n=n, mean=mean, m2=m2)
+
+
 def rhat_compute(carry: RhatCarry, n_chains: int) -> torch.Tensor:
     """Classic (non-split) R̂ per dimension [d] from the moments."""
     n = max(carry.n, 2.0)

@@ -60,12 +60,31 @@ non-zero:
    ``torch.linalg.cholesky_ex`` / ``solve_triangular`` as the library
    calls, and B7 beside B6's kernel on the same one matrix. B2 and B3
    are also held at config 5's 1,024 × 2 (phase 2).
+2e. B1 (``fused_chunk``) against its plain version on the card: at
+   config 3's own shapes, [G, n, k, d] = [10, 256, 6, 100], on the
+   operands the fused runner builds from the config-3 run's own state and
+   archive after its 500 burn-in generations; and at ragged shapes (n = 7,
+   d = 3, G = 1 on both targets with a kernel form; G = 10, n = 37,
+   d = 129 on the correlated Gaussian), and with a non-finite archive row
+   that must be rejected. Accept bits equal, except where the plain
+   version's |log u − log α| < 1e-4 (counted and printed; that chain's
+   later generations are then left out); x and logp within ``B1_TOL``.
+   Timed at config 3's shape.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
    must have launched once per generation, and every mode must still hold
    a chain. Then 200 more generations, timed alone and then under
    ``torch.profiler``, give the device's busy share and time by kernel.
+3b. The same run with ``DreamZs(fused=True)``, as ``bench.py`` times
+   config 3: burn-in on the per-generation engine, then fused chunks of
+   10 generations. B1 must have launched (fused generations) / 10 times,
+   B2 once per burn-in generation and no more, B3 once per burn-in
+   generation and once per chunk; every mode must still hold a chain and
+   every final logp be finite. Then 20 chunks timed alone and under the
+   profiler (busy share, launches per chunk), and the R̂ stop of phase 4
+   with ``fused=True`` (warm call, ``reset()``, timed call), with the
+   same launch counts per path.
 4. The R̂ stop: 256 chains in one basin, ``run_mcmc_until`` to R̂ < 1.1,
    one warm call, ``reset()``, one timed call. Both kernels must have
    launched once per generation of the two calls.
@@ -123,8 +142,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-N_CHAINS, D, CAPACITY = 256, 100, 8192
+N_CHAINS, D, CAPACITY, BURNIN = 256, 100, 8192, 500
 WARM_GENS, TIMED_GENS = 2500, 5000
+# B1 against its plain version, max |dx| and max |dlogp| over the compared
+# entries: about 10 x the largest readings of the first runs on the H100
+# (9.5e-7 and 6.1e-5, at config 3 and at d = 129; |logp| ~ 150)
+B1_TOL = {"x": 1e-5, "logp": 5e-4}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, CUDA cores (also taken for int32)
 
@@ -351,18 +374,145 @@ def launch_floor(dev):
                                      "call_ms": call_ms(op)}))
 
 
+# ---------------------------------------------------------------- phase 2e
+def config3_setup(dev):
+    """Config 3's target, means and start points (phases 2e, 3 and 3b)."""
+    import bipymc_tpu_torch as bt
+
+    means = bt.baseline_config3_means(D)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    theta0 = bt.stratified_mode_init(g, means, N_CHAINS, var=4.0, device=dev)
+    return bt.gaussian_mixture(means, sigma=1.0), means, theta0
+
+
+def b1_ragged_operands(G, n, d, seed, dev):
+    """x0, rows, u_mask, u_e, eps, scal in the fused runner's layout (u_mask
+    and u_e slices of one uniform block), δ ~ U{1..3}, CR ∈ {1/3, 2/3,
+    1}, snooker with probability 0.3, γ = 1 at generation G // 2."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(generator=g, device=dev, dtype=torch.float32)
+    x0 = 2.0 * torch.randn((n, d), **f32)
+    rows = x0[None, :, None, :] + 2.0 * torch.randn((G, n, 6, d), **f32)
+    block = torch.rand((G, n, 2 * d + 4), **f32)
+    jump = torch.zeros((G, n), device=dev)
+    jump[G // 2] = 1.0
+    scal = torch.stack([
+        torch.clamp_max(1.0 + torch.floor(torch.rand((G, n), **f32) * 3),
+                        3.0),
+        torch.randint(1, 4, (G, n), generator=g, device=dev).float() / 3.0,
+        1.2 + torch.rand((G, n), **f32),
+        (torch.rand((G, n), **f32) < 0.3).float(), jump,
+        torch.rand((G, n), **f32).clamp_min(1e-7).log()], -1)
+    return (x0, rows, block[..., 4:4 + d], block[..., 4 + d:],
+            torch.randn((G, n, d), **f32), scal)
+
+
+def b1_compare(lp, x0, ops, d, label):
+    """B1 against its plain version on one operand set; returns the
+    excused bits, max |dx| and max |dlogp| over the comparable entries,
+    and the kernel's outputs."""
+    from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk,
+                                                  fused_chunk_plain)
+    from bipymc_tpu_torch.testing import match_decisions, plain_log_alpha
+
+    kw = dict(n_pairs=3, d_true=d, b=1e-4, b_star=1e-6)
+    lp0 = lp(x0)
+    out = fused_chunk(x0, lp0, *ops, lp, **kw)
+    ref = fused_chunk_plain(x0, lp0, *ops, lp, **kw)
+    ref_la = plain_log_alpha(x0, lp0, *ops, lp, **kw)
+    torch.cuda.synchronize()
+    kept, excused = match_decisions(out[2], ref[2],
+                                    (ops[4][..., 5] - ref_la).abs())
+    errs = []
+    for key, a, b in (("x", out[0][kept], ref[0][kept]),
+                      ("logp", out[1][kept], ref[1][kept])):
+        if not (bool(torch.all((a - b).abs() <= B1_TOL[key]))
+                and bool(torch.all(torch.isfinite(a)))):
+            raise AssertionError(
+                f"B1 differs from its plain version ({label}): max "
+                f"|d{key}| {float((a - b).abs().max()):.3g}")
+        errs.append(float((a - b).abs().max()))
+    return excused, errs[0], errs[1], out
+
+
+def b1_work(x0, ops, n_modes):
+    """Bytes B1 must move and the float operations this run's moves take
+    (a mixture target). Each input the function needs is read once and
+    each output written once: a parallel move needs 2δ archive rows and
+    its three [d] draws, a snooker move rows 0-2 and no draw."""
+    rows, _, _, _, scal = ops
+    G, n, k, d = rows.shape
+    snk = scal[..., 3] > 0.5
+    n_snk = int(snk.sum())
+    par_rows = int((2 * scal[..., 0] * (~snk)).sum())
+    n_in = (x0.numel() + n + scal.numel() + n_modes * d + n_modes
+            + (3 * n_snk + par_rows) * d + 3 * (G * n - n_snk) * d)
+    n_bytes = 4 * (n_in + G * n * d + G * n) + G * n
+    par_per_dim = int(((3 * scal[..., 0] + 10) * (~snk)).sum())
+    # proposal pass 1: 7 a dim; pass 2: 6 (snooker) or 3·δ + 10
+    # (parallel); the target 3 a mode and dim; the accept ~10
+    n_ops = (G * n * d * 7 + n_snk * d * 6 + par_per_dim * d
+             + G * n * (3 * n_modes * d + 6 * n_modes + 10))
+    return n_bytes, n_ops
+
+
+def check_b1(dev):
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk,
+                                                  fused_chunk_plain)
+    from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
+
+    # config 3's own operands: its state and archive after burn-in
+    lp, means, theta0 = config3_setup(dev)
+    s = bt.DreamZs(lp, n_chains=N_CHAINS, seed=SEED, burnin_gens=BURNIN,
+                   archive_capacity=CAPACITY, device=dev)
+    s.run_mcmc(BURNIN, theta0)
+    st = s.final_state
+    ops = chunk_operands(st, s._words, BURNIN, s.cfg)
+    if tuple(ops[0].shape) != (10, N_CHAINS, 6, D):
+        raise AssertionError(f"config-3 rows {tuple(ops[0].shape)}")
+    excused, ex, el, out = b1_compare(lp, st.x, ops, D, "config 3")
+    readings = {"config3": {"excused_bits": excused, "max_abs_dx": ex,
+                            "max_abs_dlogp": el,
+                            "acceptance": float(out[2].float().mean())}}
+    cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
+             (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
+    for i, (G, n, d, kind) in enumerate(cases):
+        tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
+        x0, *rest = b1_ragged_operands(G, n, d, seed=i, dev=dev)
+        if kind == "nonfinite":
+            rest[0][2, 3] = torch.inf
+        e_bits, e_x, e_l, o = b1_compare(tgt, x0, rest, d,
+                                         f"G={G} n={n} d={d} {kind}")
+        if kind == "nonfinite" and bool(o[2][2, 3]):
+            raise AssertionError("B1 accepted a non-finite proposal")
+        readings[f"G={G} n={n} d={d} {kind}"] = {
+            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l}
+    log("B1 fused_chunk: against the plain version, limits "
+        f"{json.dumps(B1_TOL)}:", json.dumps(readings))
+
+    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
+    lp0 = lp(st.x)
+    kernel = lambda: fused_chunk(st.x, lp0, *ops, lp, **kw)
+    plain = lambda: fused_chunk_plain(st.x, lp0, *ops, lp, **kw)
+    times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
+             call_ms(kernel), call_ms(plain, reps=30, warmup=3))
+    n_bytes, n_ops = b1_work(st.x, ops, len(means))
+    return kernel_record(
+        "fused_chunk", "bipymc_tpu_torch/csrc/fused_chunk.cu",
+        "bipymc_tpu/ops/fused_chunk.py:242", max(ex, el), times, n_bytes,
+        n_ops)
+
+
 # ---------------------------------------------------------------- phase 3
 def main_path(dev):
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
 
-    means = bt.baseline_config3_means(D)
-    log_prob = bt.gaussian_mixture(means, sigma=1.0)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    theta0 = bt.stratified_mode_init(g, means, N_CHAINS, var=4.0, device=dev)
-    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED, burnin_gens=500,
-                   archive_capacity=CAPACITY, device=dev)
+    log_prob, means, theta0 = config3_setup(dev)
+    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
+                   burnin_gens=BURNIN, archive_capacity=CAPACITY, device=dev)
     distinct_idx.launches = dream_propose.launches = 0
     t0 = time.perf_counter()
     s.run_mcmc(WARM_GENS, theta0)
@@ -422,21 +572,78 @@ def busy_share(s, n_units=200, per_unit=1, unit="gen"):
     return wall_us
 
 
-# ---------------------------------------------------------------- phase 4
-def rhat_stop(dev):
+# ---------------------------------------------------------------- phase 3b
+def fused_path(dev):
+    """Config 3 on the fused engine, as ``bench.py`` times it."""
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
+
+    log_prob, means, theta0 = config3_setup(dev)
+    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
+                   burnin_gens=BURNIN, archive_capacity=CAPACITY, fused=True,
+                   device=dev)
+    distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
+    t0 = time.perf_counter()
+    s.run_mcmc(WARM_GENS, theta0)
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.run_mcmc(TIMED_GENS)
+    elapsed = time.perf_counter() - t0
+    launches = {"fused_chunk": fused_chunk.launches,
+                "dream_propose": dream_propose.launches,
+                "distinct_idx": distinct_idx.launches}
+    n_chunks = (WARM_GENS + TIMED_GENS - BURNIN) // 10
+    want = {"fused_chunk": n_chunks, "dream_propose": BURNIN,
+            "distinct_idx": BURNIN + n_chunks}
+    if launches != want:
+        raise AssertionError(f"fused config 3 launched {launches}, want "
+                             f"{want}")
+
+    chains = s.get_chain(discard=WARM_GENS)          # [256, 5000, 100]
+    if chains.shape != (N_CHAINS, TIMED_GENS, D) or \
+            not np.all(np.isfinite(chains)):
+        raise AssertionError(f"history: shape {chains.shape} or non-finite")
+    gens_per_sec = TIMED_GENS / elapsed
+    ess, ess_per_sec = bt.ess_rate(chains, gens_per_sec)
+    occ = bt.mode_occupancy(chains[:, -1], means)
+    result = {
+        "gens_per_sec": gens_per_sec,
+        "chain_steps_per_sec": gens_per_sec * N_CHAINS,
+        "ess_window": ess, "ess_per_sec": ess_per_sec,
+        "acceptance": float(np.mean(s._history["accepted"][WARM_GENS:])),
+        "mode_occupancy": occ.tolist(), "warmup_s": warm_s,
+        "timed_s": elapsed, "launches": launches}
+    log("fused main path:", json.dumps(result))
+    if occ.min() == 0:
+        raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
+    if not bool(torch.all(torch.isfinite(s.final_state.logp))):
+        raise AssertionError("fused config 3: a final logp is not finite")
+    busy_share(s, n_units=20, per_unit=10, unit="chunk")
+    rhat_stop(dev, fused=True)
+    return launches["fused_chunk"]
+
+
+# ---------------------------------------------------------------- phase 4
+def rhat_stop(dev, fused=False):
+    """The within-basin R̂ stop; with ``fused`` the chunks after burn-in
+    run on the fused engine."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
+    from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
 
     means = bt.baseline_config3_means(D)
     log_prob = bt.gaussian_mixture(means, sigma=1.0)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     theta0 = bt.var_ball(g, torch.full((D,), 4.0), N_CHAINS,
                          center=means[2], device=dev)
-    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED, burnin_gens=1000,
-                   archive_capacity=CAPACITY, fused=False, device=dev)
+    burnin = 1000
+    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED, burnin_gens=burnin,
+                   archive_capacity=CAPACITY, fused=fused, device=dev)
     kw = dict(rhat_tol=1.1, chunk=200, max_chunks=150, warmup_chunks=6)
-    distinct_idx.launches = dream_propose.launches = 0
+    distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
     warm = s.run_mcmc_until(theta0, **kw)
     s.reset()
     t0 = time.perf_counter()
@@ -444,16 +651,28 @@ def rhat_stop(dev):
     wall = time.perf_counter() - t0
     steps, rhat = int(info["steps"]), float(np.max(info["rhat"]))
     launches = {"distinct_idx": distinct_idx.launches,
-                "dream_propose": dream_propose.launches}
+                "dream_propose": dream_propose.launches,
+                "fused_chunk": fused_chunk.launches}
     n_gens = int(warm["steps"]) + steps
-    for name, count in launches.items():
-        if count != n_gens:
-            raise AssertionError(f"R-hat runs: {name} launched {count} "
-                                 f"times in {n_gens} generations")
-    log("rhat stop:", json.dumps({"wall_s": wall, "gens": steps,
-                                  "rhat_max": rhat, "launches": launches}))
+    # the fused run: burn-in per generation in each call (the stop comes
+    # after the 6 warm-up chunks, past burn-in), then chunks of 10
+    pergen = 2 * burnin if fused else n_gens
+    n_chunks = (n_gens - pergen) // 10
+    want = {"distinct_idx": pergen + n_chunks, "dream_propose": pergen,
+            "fused_chunk": n_chunks}
+    if launches != want:
+        raise AssertionError(f"R-hat runs ({n_gens} generations): launched "
+                             f"{launches}, want {want}")
+    label = "fused rhat stop:" if fused else "rhat stop:"
+    log(label, json.dumps({"wall_s": wall, "gens": steps, "rhat_max": rhat,
+                           "mode_occupancy": bt.mode_occupancy(
+                               s.final_state.x.cpu().numpy(),
+                               means).tolist(),
+                           "launches": launches}))
     if not rhat < 1.1:
         raise AssertionError(f"R-hat stop not reached: max R-hat {rhat}")
+    if not bool(torch.all(torch.isfinite(s.final_state.logp))):
+        raise AssertionError("R-hat run: a final logp is not finite")
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1491,9 +1710,10 @@ def main():
     records = [check_b3(dev), check_b2(dev), check_b4(dev), check_b5(dev),
                check_b6(dev)]
     records[3]["config5_grad"] = check_b5_grad(dev)
-    records += [check_b7(dev), check_b8(dev)]
+    records += [check_b7(dev), check_b8(dev), check_b1(dev)]
     launch_floor(dev)
     launches = main_path(dev)
+    launches["fused_chunk"] = fused_path(dev)
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)

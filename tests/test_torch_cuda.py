@@ -20,7 +20,11 @@ On config 4's Gram matrices, where both float32 routes stand ~cond·ε
 from a float64 factor, B6 is held to that factor: within 1.5 x the plain
 version's distance from it, and within 1e-5 (L) and 1e-4 (z), per matrix
 relative to its max, of it and of the plain version (chip_smoke.py's
-GRAM_TOL). B7 is held within 5e-6·max|L| of its plain version on SPD
+GRAM_TOL). B1 must take the same accept decisions as its plain version,
+except a bit the plain version puts within 1e-4 of its threshold, with x
+within rtol 1e-5 / atol 1e-5 and logp within rtol 1e-5 / atol 1e-4 (B2's
+tolerances: |logp| reaches ~200 at d = 100). B7 is held within
+5e-6·max|L| of its plain version on SPD
 matrices (B6's bound), B8 within 1e-5·max|x| (two float32 substitutions
 summing in other orders); their gradients, and B5's and B6's, within
 1e-4 of the plain routes' (relative to the largest entry), autograd of
@@ -38,6 +42,7 @@ from bipymc_tpu_torch.core.rng import draw_words
 from bipymc_tpu_torch.ensemble.indices import distinct_from_bits
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
+from bipymc_tpu_torch.ops.fused_chunk import fused_chunk, fused_chunk_plain
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
@@ -49,6 +54,8 @@ from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
                                                tri_solve_plain, tri_solve_t,
                                                tri_solve_t_plain)
 from bipymc_tpu_torch.samplers import dream, rw
+from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
+from bipymc_tpu_torch.testing import match_decisions, plain_log_alpha
 
 torch.set_num_threads(2)
 
@@ -296,6 +303,143 @@ def test_rw_step_on_card_matches_step_on_cpu(cuda):
                            infos["cpu"].accepted), t
     torch.testing.assert_close(states[cuda].theta.cpu(), states["cpu"].theta,
                                rtol=1e-5, atol=1e-5)
+
+
+# ---- kernel B1: fused_chunk ------------------------------------------------
+
+def _b1_target(kind, d):
+    rng = np.random.default_rng(d)
+    if kind == "gaussian":
+        a = rng.standard_normal((d, d))
+        return bt.correlated_gaussian(rng.standard_normal(d),
+                                      a @ a.T / d + np.eye(d))
+    return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
+
+
+def _b1_operands(G, n, d, seed, device):
+    """x0, rows, u_mask, u_e, eps, scal as the fused runner builds them;
+    u_mask and u_e are slices of a wider uniform block (row stride 2d+4),
+    as the runner passes them."""
+    rng = np.random.default_rng(seed)
+    x0 = 2.0 * rng.standard_normal((n, d))
+    rows = x0[None, :, None, :] + 2.0 * rng.standard_normal((G, n, 6, d))
+    block = rng.random((G, n, 2 * d + 4))
+    eps = rng.standard_normal((G, n, d))
+    jump = np.zeros((G, n))
+    jump[G // 2] = 1.0
+    scal = np.stack([
+        np.minimum(1 + np.floor(rng.random((G, n)) * 3), 3),
+        rng.integers(1, 4, (G, n)) / 3.0, 1.2 + rng.random((G, n)),
+        (rng.random((G, n)) < 0.3) * 1.0, jump,
+        np.log(rng.uniform(1e-7, 1.0, (G, n)))], -1)
+    t = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        device) for a in (x0, rows, block, eps, scal)]
+    return t[0], t[1], t[2][..., 4:4 + d], t[2][..., 4 + d:], t[3], t[4]
+
+
+def _b1_both(lp, ops, d):
+    x0, rows, u_mask, u_e, eps, scal = ops
+    lp0 = lp(x0)
+    before = fused_chunk.launches
+    out = fused_chunk(x0, lp0, rows, u_mask, u_e, eps, scal, lp, d_true=d,
+                      **KW)
+    torch.cuda.synchronize()
+    assert fused_chunk.launches == before + 1
+    args = (x0, lp0, rows, u_mask, u_e, eps, scal, lp)
+    ref = fused_chunk_plain(*args, d_true=d, **KW)
+    return out, ref + (plain_log_alpha(*args, d_true=d, **KW),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d,kind", [
+    (10, 256, 100, "mixture"), (1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
+    (10, 37, 129, "gaussian"), (5, 32, 8, "mixture")])
+def test_b1_kernel_matches_plain(cuda, G, n, d, kind):
+    """Config 3's shape [10, 256, 6, 100] and ragged ones: the same
+    accept bits, except where the plain version's |log u − log α| < 1e-4
+    (that chain then left out), x and logp within B2's tolerances."""
+    lp = _b1_target(kind, d)
+    ops = _b1_operands(G, n, d, seed=G + n + d, device=cuda)
+    out, ref = _b1_both(lp, ops, d)
+    kept, _ = match_decisions(out[2], ref[2],
+                              (ops[5][..., 5] - ref[3]).abs())
+    assert bool(kept[0].all())
+    torch.testing.assert_close(out[0][kept], ref[0][kept], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out[1][kept], ref[1][kept], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_b1_rejects_a_nonfinite_proposal(cuda):
+    lp = _b1_target("mixture", 4)
+    ops = _b1_operands(5, 8, 4, seed=3, device=cuda)
+    ops[1][2, 3] = torch.inf
+    out, ref = _b1_both(lp, ops, 4)
+    assert torch.equal(out[2], ref[2]) and not bool(out[2][2, 3])
+    assert bool(torch.all(torch.isfinite(out[0])))
+
+
+@pytest.mark.cuda
+def test_b1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    lp = _b1_target("mixture", 4)
+    x0, rows, u_mask, u_e, eps, scal = _b1_operands(3, 4, 4, 0, cuda)
+    args = [x0, lp(x0), rows, u_mask, u_e, eps, scal]
+    with pytest.raises(ValueError, match="kernel form"):
+        fused_chunk(*args, lambda x: -torch.sum(x ** 2, -1), d_true=4, **KW)
+    with pytest.raises(ValueError, match="float32"):
+        fused_chunk(*[a.double() for a in args], lp, d_true=4, **KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_chunk(*args[:2], rows.transpose(0, 1).contiguous()
+                    .transpose(0, 1), *args[3:], lp, d_true=4, **KW)
+    with pytest.raises(ValueError, match="unit stride"):
+        fused_chunk(*args[:3], u_mask.transpose(0, 1).contiguous()
+                    .transpose(0, 1), *args[4:], lp, d_true=4, **KW)
+
+
+@pytest.mark.cuda
+def test_dreamzs_fused_on_card_matches_per_generation_engine(cuda):
+    """``DreamZs(fused=True)`` against ``fused=False`` on the card, the
+    same seed, 60 generations after a burn-in of 100: B1 once a chunk,
+    B2 only through burn-in, and the same decisions, except a bit the
+    plain version puts within 1e-4 of its threshold (after it, that
+    chunk's later generations of the chain and every later chunk are left
+    out)."""
+    n, d, burnin, gens = 64, 20, 100, 60
+    means = bt.baseline_config3_means(d)
+    theta0 = bt.stratified_mode_init(
+        torch.Generator(device=cuda).manual_seed(0), means, n, device=cuda)
+    kw = dict(n_chains=n, seed=0, burnin_gens=burnin, archive_capacity=2048,
+              device=cuda)
+    ref = bt.DreamZs(bt.gaussian_mixture(means), **kw)
+    fus = bt.DreamZs(bt.gaussian_mixture(means), fused=True, **kw)
+    ref.run_mcmc(burnin + gens, theta0)
+    b1, b2 = fused_chunk.launches, dream_propose.launches
+    fus.run_mcmc(burnin + gens, theta0)
+    assert fused_chunk.launches - b1 == gens // 10
+    assert dream_propose.launches - b2 == burnin
+    rh, fh = ref._history, fus._history
+    assert np.array_equal(rh["accepted"][:burnin], fh["accepted"][:burnin])
+    for c in range(burnin, burnin + gens, 10):
+        ra, fa = rh["accepted"][c:c + 10], fh["accepted"][c:c + 10]
+        assert np.array_equal(rh["snooker"][c:c + 10],
+                              fh["snooker"][c:c + 10])
+        if np.array_equal(ra, fa):
+            np.testing.assert_allclose(fh["x"][c:c + 10], rh["x"][c:c + 10],
+                                       rtol=1e-5, atol=1e-4)
+            continue
+        # the chunk's log α from the plain version, at the state the
+        # per-generation engine reached
+        s = bt.DreamZs(bt.gaussian_mixture(means), **kw)
+        s.run_mcmc(c, theta0)
+        ops = chunk_operands(s.final_state, s._words, c, s.cfg)
+        ref_la = plain_log_alpha(
+            s.final_state.x, s.final_state.logp, *ops, s.log_like_fn,
+            d_true=d, **KW)
+        match_decisions(torch.from_numpy(fa), torch.from_numpy(ra),
+                        (ops[4][..., 5] - ref_la).abs().cpu())
+        break
+    assert np.all(np.isfinite(fh["x"])) and 0 < fh["accepted"].mean() < 1
 
 
 # ---- kernels B5 and B6: sqdist and the batched Cholesky --------------------
