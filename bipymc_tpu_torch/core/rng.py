@@ -15,6 +15,13 @@ Words are carried as **int32 bit patterns**: the same 32 bits as the JAX
 supports few operations. ``np.asarray(jax_words).view(np.int32)`` turns a
 JAX block into the port's form, and the CUDA kernels read the buffer as
 ``uint32`` directly.
+
+DREAM-zs's fused engine has a second source for the crossover uniforms,
+the multiplicative uniforms and the normals, its in-kernel mode:
+:func:`philox4x32_10` (Salmon et al., SC'11, "Parallel random numbers:
+as easy as 1, 2, 3") keyed per generation by :func:`kernel_seed`, which
+kernel B1 computes in device code (``csrc/philox.cuh``) and
+:func:`kernel_draw_bits` in torch ops.
 """
 
 import numpy as np
@@ -79,6 +86,11 @@ def _splitmix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
+def step_seed(key: int, t: int) -> int:
+    """The 64-bit seed of step t under run key ``key``."""
+    return _splitmix64((int(key) & _MASK64) ^ _splitmix64(int(t)))
+
+
 class StepWords:
     """Words that depend on (key, global step t) alone.
 
@@ -101,7 +113,7 @@ class StepWords:
         return self._gens[device]
 
     def seed_of(self, t: int) -> int:
-        return _splitmix64(self.key ^ _splitmix64(int(t)))
+        return step_seed(self.key, t)
 
     def __call__(self, t, n, n_words, device) -> torch.Tensor:
         gen = self._gen(device).manual_seed(self.seed_of(t))
@@ -124,3 +136,77 @@ def seed_ints(seed: int, n: int) -> list:
     ``SeedSequence``."""
     return [int(s) for s in
             np.random.SeedSequence(int(seed)).generate_state(n, np.uint64)]
+
+
+# Philox4x32-10's round multipliers and Weyl key increments (Random123)
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+# folded into a step's seed to key the in-kernel draws, the constant the
+# JAX package folds into its kernel-RNG seeds (``_kernel_rng_seeds``)
+KERNEL_RNG_FOLD = 0x6B524E47
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit halves of ``m · c`` for c in [0, 2³²) as int64.
+    The product reaches 2⁶⁴, past int64, so c is split into 16-bit
+    halves whose partial products stay below 2⁴⁸."""
+    p_lo = (c & 0xFFFF) * m
+    p_hi = (c >> 16) * m
+    s = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (s >> 32) + (p_hi >> 16), s & _M32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 on int64 tensors holding 32-bit values.
+
+    ``ctr``: four counter words and ``key``: two key words, tensors or
+    ints that broadcast together. Returns the four output words, int64
+    in [0, 2³²). Ten rounds; the key takes its Weyl increment before
+    every round but the first, as in Random123's ``philox4x32_R``.
+    """
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & _M32
+            k1 = (k1 + PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def kernel_seed(key: int, t: int) -> int:
+    """The 64-bit Philox key of generation t's in-kernel draws: the
+    step's seed with ``KERNEL_RNG_FOLD`` folded in, so the draws stand
+    apart from the step's words."""
+    return _splitmix64(step_seed(key, t) ^ KERNEL_RNG_FOLD)
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """Words in [0, 2³²) as int64 → the same bits as int32."""
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def kernel_draw_bits(key: int, t0: int, G: int, n: int, d: int,
+                     device) -> tuple:
+    """The words kernel B1 draws in its in-kernel mode, in torch ops:
+    three ``[G, n, d]`` int32 blocks (for u_mask, u_e and eps).
+
+    Word (t, chain i, lane j) of block b is output word b of
+    ``philox4x32_10(ctr=(j, i, 0, 0), key=kernel_seed(key, t))``, the
+    key's low half first; word 3 is unused. A chain's draws thus depend
+    on (key, t, i, j) alone, not on n, G or how a run is cut into
+    chunks.
+    """
+    lane = torch.arange(d, dtype=torch.int64, device=device)
+    chain = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    seeds = [kernel_seed(key, t0 + g) for g in range(G)]
+    k0 = torch.tensor([s & _M32 for s in seeds], dtype=torch.int64,
+                      device=device)[:, None, None]
+    k1 = torch.tensor([s >> 32 for s in seeds], dtype=torch.int64,
+                      device=device)[:, None, None]
+    out = philox4x32_10((lane, chain, 0, 0), (k0, k1))
+    shape = (G, n, d)
+    return tuple(_as_int32(w.expand(shape)).contiguous() for w in out[:3])

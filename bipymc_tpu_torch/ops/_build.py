@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_U64 = ctypes.c_uint64
 # C signatures of the entry points, by source name
 SIGNATURES = {
     "distinct_idx": ("distinct_idx_launch",
@@ -44,9 +45,9 @@ SIGNATURES = {
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                         _F, _F, _I, _P, _P, _P, _P, _P]),
     "fused_chunk": ("fused_chunk_launch",
-                    [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _P, _I, _I, _I,
-                     _I, _F, _F, _F, _I, _P, _P, _I, _F, _F, _P, _P, _P,
-                     _P]),
+                    [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _U64, _L,
+                     _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
+                     _I, _F, _F, _P, _P, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),

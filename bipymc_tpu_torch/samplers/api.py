@@ -183,8 +183,18 @@ class DreamZs(McmcSampler):
     and for every run with ``thin != 1``. Both engines read the same words
     for the same generation (``core/rng.StepWords``), so they take the
     same decisions. The fused engine is float32-only and needs a target
-    with a kernel form (``models/targets.KERNEL_TARGETS``). Not ported,
-    raising ``NotImplementedError``: ``mesh=``, ``fused_rng="kernel"``,
+    with a kernel form (``models/targets.KERNEL_TARGETS``).
+
+    ``fused_rng="kernel"`` (as ``bench.py`` runs the JAX package): B1
+    draws each generation's crossover uniforms, multiplicative uniforms
+    and normals itself, from Philox keyed by the run key, the generation
+    and the chain (``core/rng.kernel_draw_bits``), so the fused chunks
+    sample the same distributions as stream mode with other draws. On
+    the CPU the plain version draws the same words in torch ops (the JAX
+    package refuses the mode off the TPU). With ``fused=False`` it is
+    ignored, as in the JAX package.
+
+    Not ported, raising ``NotImplementedError``: ``mesh=``,
     ``fused_z_update > 1``, ``fused_gather`` other than ``"block"`` and
     ``log_prob_block``.
     """
@@ -200,15 +210,14 @@ class DreamZs(McmcSampler):
             raise ValueError(
                 f"fused_rng={fused_rng!r}: expected 'stream' or 'kernel'")
         unported = [name for name, v, default in (
-            ("fused_rng", fused_rng, "stream"),
             ("fused_z_update", fused_z_update, 1),
             ("fused_gather", fused_gather, "block"),
             ("log_prob_block", log_prob_block, None)) if v != default]
         if unported:
             raise NotImplementedError(
-                f"{unported}: not ported (the fused engine runs stream mode, "
-                "one archive update a chunk, torch's gather and the "
-                f"built-in targets): {_FUSED_ITEM}")
+                f"{unported}: not ported (the fused engine runs one archive "
+                "update a chunk, torch's gather and the built-in targets): "
+                f"{_FUSED_ITEM}")
         super().__init__(log_like_fn, seed=seed, dtype=dtype, device=device)
         self.n_chains = int(n_chains)
         self.cfg = dream.DreamConfig(n_chains=self.n_chains, **config_kw)
@@ -216,6 +225,7 @@ class DreamZs(McmcSampler):
         self.archive_capacity = archive_capacity
         self.n_archive_init = n_archive_init
         self.fused = bool(fused)
+        self.fused_rng = fused_rng
         self._words = None
         if self.fused:
             check_fusable(self.cfg)
@@ -297,7 +307,8 @@ class DreamZs(McmcSampler):
             t = self._steps_run
             if kind == "fused":
                 final_state, history = make_chunk_runner(
-                    self.log_like_fn, self.cfg)(state, self._words, n_seg, t)
+                    self.log_like_fn, self.cfg, rng=self.fused_rng)(
+                        state, self._words, n_seg, t)
             else:
                 final_state, history = self._pool_obj.run(
                     state, self._words, n_seg, thin=1, t0=t)
@@ -326,7 +337,8 @@ class DreamZs(McmcSampler):
                 chunk += G - chunk % G
             if self._steps_run % G == 0:
                 chunk_runner = make_chunk_runner(self.log_like_fn, self.cfg,
-                                                 collect="rhat")
+                                                 collect="rhat",
+                                                 rng=self.fused_rng)
                 fused_after = self.cfg.burnin_gens
         # the auto ring is capped at 32 population snapshots, as in the
         # JAX package: chunk·max_chunks is a worst case a run rarely nears

@@ -127,9 +127,12 @@ def n_rows(cfg: DreamConfig) -> int:
     return max(2 * cfg.delta_max, 3)
 
 
-def n_words(cfg: DreamConfig, d: int) -> int:
-    """Random words per chain per generation."""
-    return 5 + n_rows(cfg) + 3 * d
+def n_words(cfg: DreamConfig, d: int, kernel_rng: bool = False) -> int:
+    """Random words per chain per generation: the scalars' 5 and the
+    rows' n_rows, then the 3d of u_mask, u_e and eps, which kernel B1's
+    kernel-RNG mode draws itself (``bipymc_tpu/samplers/dream_fused.py:
+    277-278``)."""
+    return 5 + n_rows(cfg) + (0 if kernel_rng else 3 * d)
 
 
 def archive_init_checked(z0, capacity, cfg: DreamConfig) -> Archive:

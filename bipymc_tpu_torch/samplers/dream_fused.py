@@ -1,10 +1,11 @@
 """Chunked fused engine for steady-state DREAM-zs.
 
-Counterpart of ``bipymc_tpu/samplers/dream_fused.py`` on one device,
-stream mode: a host loop over chunks of G = ``archive_thin``
-generations, each (a) a few torch ops that make the chunk's operands
-from the same words as the per-generation engine (``core/rng.
-StepWords``: the words of generation t depend on t alone), draw the
+Counterpart of ``bipymc_tpu/samplers/dream_fused.py`` on one device, in
+stream mode and in kernel-RNG mode: a host loop over chunks of G =
+``archive_thin`` generations, each (a) a few torch ops that make the
+chunk's operands from the same words as the per-generation engine
+(``core/rng.StepWords``: the words of generation t depend on t alone),
+draw the
 distinct archive rows with kernel B3 and gather them, and pack the
 per-chain scalars with the frozen CR table, then (b) ONE launch of
 kernel B1 (``ops/fused_chunk.py``) for all G generations, then (c) the
@@ -20,9 +21,16 @@ thus takes the per-generation engine's decisions: the same words, the
 same rows, the same scalars and the same math (B2's proposal and
 ``metropolis_select``), up to float re-association on the card.
 
+Kernel-RNG mode (``rng="kernel"``, as ``bench.py`` runs the JAX
+package): B1 draws the crossover uniforms, the multiplicative uniforms
+and the normals itself (Philox keyed by the run key, the generation and
+the chain), so a generation's word block shrinks from 5 + k + 3d words a
+chain to 5 + k, and the chunk's decisions are no longer the
+per-generation engine's: the same distributions, other draws.
+
 Not ported (``samplers/api.py`` raises for each, naming its ROADMAP
-item): the mesh, ``rng="kernel"``, ``z_update_every > 1``, the gather
-modes and ``log_prob_block``. ``_GATHER_MODE``
+item): the mesh, ``z_update_every > 1``, the gather modes and
+``log_prob_block``. ``_GATHER_MODE``
 (``bipymc_tpu/samplers/dream_fused.py:85-103``) chose among TPU
 lowerings of one gather; here the gather is torch indexing.
 """
@@ -67,27 +75,22 @@ def check_fusable(cfg: DreamConfig, mesh=None):
         raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
 
 
-def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
-    """Kernel B1's operands for generations t0 … t0 + G − 1 from the
-    chunk-start state: ``(rows [G, n, k, d], u_mask, u_e, eps [G, n, d],
-    scal [G, n, 6])``, built as ``samplers/dream.py``'s step builds one
-    generation's (``words`` has ``block``, as ``core/rng.StepWords``)."""
+def _rows_and_scal(state: DreamState, blk, u_all, t0: int,
+                   cfg: DreamConfig):
+    """The archive rows [G, n, k, d] and packed scalars [G, n, 6] of
+    generations t0 … t0 + G − 1 from their word block ``blk`` [G, n, ≥ 5
+    + k] and its uniforms ``u_all``, built as ``samplers/dream.py``'s
+    step builds one generation's."""
     x = state.x
     n, d = x.shape
     dtype, device = x.dtype, x.device
     G = cfg.archive_thin
     k = n_rows(cfg)
     n_pairs = cfg.delta_max
-    blk = words.block(t0, G, n, n_words(cfg, d), device)   # [G, n, words]
-    u_all = bits_to_uniform(blk, dtype)
     u_scal = u_all[..., 0:3]
     u_cr = u_all[..., 3]
-    off = 5 + k
-    u_mask = u_all[..., off:off + d]
-    u_e = u_all[..., off + d:off + 2 * d]
-    eps = uniform_to_normal(u_all[..., off + 2 * d:])
     # every generation of the chunk samples the chunk-start archive
-    row_idx = distinct_idx(blk.view(G * n, -1)[:, 5:off], k,
+    row_idx = distinct_idx(blk.view(G * n, -1)[:, 5:5 + k], k,
                            state.archive.fill)
     rows = state.archive.buf[row_idx].view(G, n, k, d)
     # the scalars as the step packs them, with the frozen CR table
@@ -106,11 +109,51 @@ def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
         cr = torch.where(gj > 0.5, 1.0, cr)
     scal = torch.stack([delta, cr, gamma_s, is_snk, gj,
                         torch.log(u_all[..., 4])], dim=-1)
-    return rows, u_mask, u_e, eps, scal
+    return rows, scal
+
+
+def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
+    """Kernel B1's stream-mode operands for generations t0 … t0 + G − 1
+    from the chunk-start state: ``(rows [G, n, k, d], u_mask, u_e, eps
+    [G, n, d], scal [G, n, 6])``, built as ``samplers/dream.py``'s step
+    builds one generation's (``words`` has ``block``, as
+    ``core/rng.StepWords``)."""
+    n, d = state.x.shape
+    off = 5 + n_rows(cfg)
+    blk = words.block(t0, cfg.archive_thin, n, n_words(cfg, d),
+                      state.x.device)                     # [G, n, words]
+    u_all = bits_to_uniform(blk, state.x.dtype)
+    rows, scal = _rows_and_scal(state, blk, u_all, t0, cfg)
+    return (rows, u_all[..., off:off + d], u_all[..., off + d:off + 2 * d],
+            uniform_to_normal(u_all[..., off + 2 * d:]), scal)
+
+
+def chunk_operands_kernel_rng(state: DreamState, words, t0: int,
+                              cfg: DreamConfig, test_stream_bits=False):
+    """Kernel B1's kernel-RNG-mode operands: ``(rows, scal, test_bits)``
+    from a ``[G, n, 5 + k]`` word block; B1 draws u_mask, u_e and eps
+    itself, so ``test_bits`` is None. With ``test_stream_bits`` the block
+    is stream mode's, and its last 3d words of each chain become
+    ``test_bits`` (``bipymc_tpu/samplers/dream_fused.py:346-351``), so
+    the chunk takes stream mode's decisions."""
+    n, d = state.x.shape
+    blk = words.block(t0, cfg.archive_thin, n,
+                      n_words(cfg, d, kernel_rng=not test_stream_bits),
+                      state.x.device)
+    rows, scal = _rows_and_scal(state, blk,
+                                bits_to_uniform(blk[..., :5], state.x.dtype),
+                                t0, cfg)
+    test_bits = None
+    if test_stream_bits:
+        off = 5 + n_rows(cfg)
+        test_bits = tuple(blk[..., off + j * d:off + (j + 1) * d].contiguous()
+                          for j in range(3))
+    return rows, scal, test_bits
 
 
 def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
-                      collect: str = "all") -> Callable:
+                      collect: str = "all", rng: str = "stream",
+                      _test_stream_bits: bool = False) -> Callable:
     """Build ``run(state, words, n_gens, t0) -> (state, history)``.
 
     n_gens must be a multiple of G = ``cfg.archive_thin``; ``t0`` (the
@@ -122,10 +165,19 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     ``collect="rhat"`` folds them chunk by chunk into per-chain moments,
     returned as ``history["rhat"]`` (what ``ChainPool.run_until``
     merges).
+
+    ``rng="kernel"``: kernel B1 draws u_mask, u_e and eps itself from
+    Philox keyed by ``words.key`` and the generation
+    (``core/rng.kernel_draw_bits``), and the chunk's word block holds
+    only the 5 + k scalar and row words. ``_test_stream_bits`` (tests
+    only) hands B1 stream mode's words instead, so kernel-RNG mode takes
+    stream mode's decisions.
     """
     if collect not in ("all", "stats", "rhat"):
         raise ValueError(
             f"collect={collect!r}: expected 'all', 'stats' or 'rhat'")
+    if rng not in ("stream", "kernel"):
+        raise ValueError(f"rng={rng!r}: expected 'stream' or 'kernel'")
     check_fusable(cfg)
     G = cfg.archive_thin
     kw = dict(n_pairs=cfg.delta_max, b=cfg.b, b_star=cfg.b_star)
@@ -140,10 +192,19 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
         rc = rhat_init(n, d, st.x.dtype, st.x.device)
         xs, lps, accs, snks = [], [], [], []
         for c0 in range(t0, t0 + n_gens, G):
-            rows, u_mask, u_e, eps, scal = chunk_operands(st, words, c0, cfg)
-            xh, lph, acc = run_fused_chunk(st.x, st.logp, rows, u_mask, u_e,
-                                           eps, scal, log_prob, d_true=d,
-                                           **kw)
+            if rng == "kernel":
+                rows, scal, tb = chunk_operands_kernel_rng(
+                    st, words, c0, cfg, _test_stream_bits)
+                xh, lph, acc = run_fused_chunk(
+                    st.x, st.logp, rows, None, None, None, scal, log_prob,
+                    d_true=d, rng="kernel", run_key=words.key, t0=c0,
+                    test_bits=tb, **kw)
+            else:
+                rows, u_mask, u_e, eps, scal = chunk_operands(st, words, c0,
+                                                              cfg)
+                xh, lph, acc = run_fused_chunk(
+                    st.x, st.logp, rows, u_mask, u_e, eps, scal, log_prob,
+                    d_true=d, **kw)
             st = DreamState(
                 x=xh[-1], logp=lph[-1],
                 archive=archive_append(st.archive, xh[-1]),

@@ -5,7 +5,8 @@ per-chain Welford moments (count, mean, M2 per dimension) stay on the
 device and fold in one population snapshot per generation; R̂ is
 computed from them once per chunk. ``n`` is a host float: every chain
 folds the same number of snapshots. ``rhat_update_block`` folds a fused
-chunk's whole history; ``rhat_merge`` waits for the fused DREAM engine.
+chunk's whole history; ``rhat_merge`` joins the fused chunks' moments to
+the per-generation engine's (``ChainPool.run_until``).
 """
 
 from typing import NamedTuple

@@ -69,7 +69,16 @@ non-zero:
    that must be rejected. Accept bits equal, except where the plain
    version's |log u − log α| < 1e-4 (counted and printed; that chain's
    later generations are then left out); x and logp within ``B1_TOL``.
-   Timed at config 3's shape.
+   Timed at config 3's shape. Then B1 in kernel-RNG mode (Philox drawn in
+   the kernel) against its plain version on the same words
+   (``core/rng.kernel_draw_bits``), on the kernel-RNG runner's own
+   config-3 operands under the main path's run key from its first chunk
+   (t0 = 500), and on the same ragged and non-finite cases under a run
+   key with its top bit set, with the same rule and limits; fed stream
+   mode's words of the config-3 chunk as ``test_bits``, against
+   stream-mode B1 on that chunk (the same rule). Timed at config 3's
+   shape, stream and kernel-RNG mode in turns (stream, kernel, kernel,
+   stream); its own record in the kernels line.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -85,6 +94,12 @@ non-zero:
    profiler (busy share, launches per chunk), and the R̂ stop of phase 4
    with ``fused=True`` (warm call, ``reset()``, timed call), with the
    same launch counts per path.
+3c. Phase 3b again with ``DreamZs(fused=True, fused_rng="kernel")``, as
+   ``bench.py`` runs the JAX package: B1 must have launched in
+   kernel-RNG mode once a chunk and never in stream mode, with the same
+   checks, profile and R̂ stop. Then 3b's and 3c's gens/s, ESS/s,
+   acceptance and occupancy on one line, and a chunk's wall and busy
+   time of both samplers in turns (stream, kernel, kernel, stream).
 4. The R̂ stop: 256 chains in one basin, ``run_mcmc_until`` to R̂ < 1.1,
    one warm call, ``reset()``, one timed call. Both kernels must have
    launched once per generation of the two calls.
@@ -435,38 +450,58 @@ def b1_compare(lp, x0, ops, d, label):
     return excused, errs[0], errs[1], out
 
 
-def b1_work(x0, ops, n_modes):
-    """Bytes B1 must move and the float operations this run's moves take
-    (a mixture target). Each input the function needs is read once and
-    each output written once: a parallel move needs 2δ archive rows and
-    its three [d] draws, a snooker move rows 0-2 and no draw."""
-    rows, _, _, _, scal = ops
+# operations a lane of kernel-RNG B1 spends on its three draws: Philox's
+# ten rounds (two multiply-highs, two multiplies, four XORs; nine key
+# bumps of two adds), the three uniforms (3 each), 2u - 1 and its clamp,
+# and the inverse normal CDF in float64, ~40 operations counted twice
+# (the H100's float64 rate is half its float32 rate)
+KRNG_OPS_PER_LANE = 10 * 8 + 9 * 2 + 3 * 3 + 3 + 2 * 40
+
+
+def b1_work(x0, rows, scal, n_modes, kernel_rng=False):
+    """Bytes B1 must move and the operations this run's moves take (a
+    mixture target). Each input the function needs is read once and
+    each output written once: a parallel move needs 2δ archive rows and,
+    in stream mode, its three [d] draws, a snooker move rows 0-2 and no
+    draw. Kernel-RNG mode reads no draws and makes every lane's three."""
     G, n, k, d = rows.shape
     snk = scal[..., 3] > 0.5
     n_snk = int(snk.sum())
     par_rows = int((2 * scal[..., 0] * (~snk)).sum())
     n_in = (x0.numel() + n + scal.numel() + n_modes * d + n_modes
-            + (3 * n_snk + par_rows) * d + 3 * (G * n - n_snk) * d)
+            + (3 * n_snk + par_rows) * d)
+    if not kernel_rng:
+        n_in += 3 * (G * n - n_snk) * d
     n_bytes = 4 * (n_in + G * n * d + G * n) + G * n
     par_per_dim = int(((3 * scal[..., 0] + 10) * (~snk)).sum())
     # proposal pass 1: 7 a dim; pass 2: 6 (snooker) or 3·δ + 10
     # (parallel); the target 3 a mode and dim; the accept ~10
     n_ops = (G * n * d * 7 + n_snk * d * 6 + par_per_dim * d
              + G * n * (3 * n_modes * d + 6 * n_modes + 10))
+    if kernel_rng:
+        n_ops += G * n * d * KRNG_OPS_PER_LANE
     return n_bytes, n_ops
 
 
-def check_b1(dev):
+def config3_burned_in(dev):
+    """Config 3's target, means and per-generation sampler after its
+    burn-in: the state and archive the fused runner starts from."""
     import bipymc_tpu_torch as bt
+
+    lp, means, theta0 = config3_setup(dev)
+    s = bt.DreamZs(lp, n_chains=N_CHAINS, seed=SEED, burnin_gens=BURNIN,
+                   archive_capacity=CAPACITY, device=dev)
+    s.run_mcmc(BURNIN, theta0)
+    return lp, means, s
+
+
+def check_b1(dev):
     from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk,
                                                   fused_chunk_plain)
     from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
 
     # config 3's own operands: its state and archive after burn-in
-    lp, means, theta0 = config3_setup(dev)
-    s = bt.DreamZs(lp, n_chains=N_CHAINS, seed=SEED, burnin_gens=BURNIN,
-                   archive_capacity=CAPACITY, device=dev)
-    s.run_mcmc(BURNIN, theta0)
+    lp, means, s = config3_burned_in(dev)
     st = s.final_state
     ops = chunk_operands(st, s._words, BURNIN, s.cfg)
     if tuple(ops[0].shape) != (10, N_CHAINS, 6, D):
@@ -497,11 +532,138 @@ def check_b1(dev):
     plain = lambda: fused_chunk_plain(st.x, lp0, *ops, lp, **kw)
     times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
              call_ms(kernel), call_ms(plain, reps=30, warmup=3))
-    n_bytes, n_ops = b1_work(st.x, ops, len(means))
+    n_bytes, n_ops = b1_work(st.x, ops[0], ops[4], len(means))
     return kernel_record(
         "fused_chunk", "bipymc_tpu_torch/csrc/fused_chunk.cu",
         "bipymc_tpu/ops/fused_chunk.py:242", max(ex, el), times, n_bytes,
         n_ops)
+
+
+# ------------------------------------------------ phase 2e, kernel-RNG mode
+# the ragged cases' run key: its top bit set, so a key ≥ 2⁶³ crosses
+# the wrapper's uint64 argument (config 3's own key, seed 0, is < 2⁶³)
+RUN_KEY_HI = 0xF123456789ABCDEF
+
+
+def b1_kernel_rng_compare(lp, x0, rows, scal, d, label, run_key, t0,
+                          test_bits=None):
+    """Kernel-RNG B1 against its plain version (the same Philox words,
+    or ``test_bits``) on one operand set; returns the excused bits, max
+    |dx| and max |dlogp| over the comparable entries, the kernel's
+    outputs and the plain version's log α."""
+    from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk,
+                                                  fused_chunk_plain,
+                                                  kernel_rng_draws)
+    from bipymc_tpu_torch.testing import match_decisions, plain_log_alpha
+
+    G, n = scal.shape[:2]
+    kw = dict(n_pairs=3, d_true=d, b=1e-4, b_star=1e-6)
+    lp0 = lp(x0)
+    out = fused_chunk(x0, lp0, rows, None, None, None, scal, lp,
+                      rng="kernel", run_key=run_key, t0=t0,
+                      test_bits=test_bits, **kw)
+    draws = kernel_rng_draws(run_key, t0, G, n, d, x0.device, test_bits)
+    ref = fused_chunk_plain(x0, lp0, rows, *draws, scal, lp, **kw)
+    ref_la = plain_log_alpha(x0, lp0, rows, *draws, scal, lp, **kw)
+    torch.cuda.synchronize()
+    kept, excused = match_decisions(out[2], ref[2],
+                                    (scal[..., 5] - ref_la).abs())
+    errs = []
+    for key, a, b in (("x", out[0][kept], ref[0][kept]),
+                      ("logp", out[1][kept], ref[1][kept])):
+        if not (bool(torch.all((a - b).abs() <= B1_TOL[key]))
+                and bool(torch.all(torch.isfinite(a)))):
+            raise AssertionError(
+                f"kernel-RNG B1 differs from its plain version ({label}): "
+                f"max |d{key}| {float((a - b).abs().max()):.3g}")
+        errs.append(float((a - b).abs().max()))
+    return excused, errs[0], errs[1], out, ref_la
+
+
+def check_b1_kernel_rng(dev):
+    """B1 in kernel-RNG mode against its plain version, and, fed stream
+    mode's words, against B1 in stream mode. Config 3's chunk draws the
+    words of the main path's first chunk: its run key, t0 = burn-in."""
+    from bipymc_tpu_torch.ops.fused_chunk import (
+        fused_chunk, fused_chunk_kernel_rng_plain)
+    from bipymc_tpu_torch.samplers.dream_fused import (
+        chunk_operands, chunk_operands_kernel_rng)
+    from bipymc_tpu_torch.testing import match_decisions
+
+    lp, means, s = config3_burned_in(dev)
+    st = s.final_state
+    key = s._words.key
+    rows, scal, _ = chunk_operands_kernel_rng(st, s._words, BURNIN, s.cfg)
+    if tuple(rows.shape) != (10, N_CHAINS, 6, D):
+        raise AssertionError(f"config-3 rows {tuple(rows.shape)}")
+    excused, ex, el, out, _ = b1_kernel_rng_compare(lp, st.x, rows, scal, D,
+                                                    "config 3", key, BURNIN)
+    readings = {"config3": {"excused_bits": excused, "max_abs_dx": ex,
+                            "max_abs_dlogp": el,
+                            "acceptance": float(out[2].float().mean())}}
+    cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
+             (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
+    for i, (G, n, d, kind) in enumerate(cases):
+        tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
+        x0, r, _, _, _, sc = b1_ragged_operands(G, n, d, seed=i, dev=dev)
+        if kind == "nonfinite":
+            r[2, 3] = torch.inf
+        e_bits, e_x, e_l, o, _ = b1_kernel_rng_compare(
+            tgt, x0, r, sc, d, f"G={G} n={n} d={d} {kind}", RUN_KEY_HI,
+            10 * i)
+        if kind == "nonfinite" and bool(o[2][2, 3]):
+            raise AssertionError("kernel-RNG B1 accepted a non-finite "
+                                 "proposal")
+        readings[f"G={G} n={n} d={d} {kind}"] = {
+            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l}
+
+    # stream mode's own words as test_bits: the decisions of stream-mode
+    # B1 on the same chunk (a bit excused only at a plain near tie)
+    s_ops = chunk_operands(st, s._words, BURNIN, s.cfg)
+    t_rows, t_scal, tb = chunk_operands_kernel_rng(
+        st, s._words, BURNIN, s.cfg, test_stream_bits=True)
+    e_bits, e_x, e_l, t_out, t_la = b1_kernel_rng_compare(
+        lp, st.x, t_rows, t_scal, D, "config 3, stream words", key, BURNIN,
+        test_bits=tb)
+    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
+    lp0 = lp(st.x)
+    stream = fused_chunk(st.x, lp0, *s_ops, lp, **kw)
+    kept, vs_stream = match_decisions(t_out[2], stream[2],
+                                      (t_scal[..., 5] - t_la).abs())
+    dx = float((t_out[0][kept] - stream[0][kept]).abs().max())
+    if dx > B1_TOL["x"]:
+        raise AssertionError(f"kernel-RNG B1 on stream words: max |dx| "
+                             f"{dx:.3g} from stream-mode B1")
+    readings["config3 stream words"] = {
+        "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l,
+        "excused_vs_stream_mode": vs_stream, "max_abs_dx_vs_stream_mode": dx,
+        "decisions_equal_stream_mode": bool(torch.equal(t_out[2],
+                                                        stream[2]))}
+    log("B1 fused_chunk, kernel RNG: against the plain version, limits "
+        f"{json.dumps(B1_TOL)}:", json.dumps(readings))
+
+    kw_k = dict(kw, rng="kernel", run_key=key, t0=BURNIN)
+    kernel = lambda: fused_chunk(st.x, lp0, rows, None, None, None, scal,
+                                 lp, **kw_k)
+    plain = lambda: fused_chunk_kernel_rng_plain(
+        st.x, lp0, rows, scal, lp, run_key=key, t0=BURNIN, **kw)
+    stream_fn = lambda: fused_chunk(st.x, lp0, *s_ops, lp, **kw)
+    # the two modes in turns on the same chunk: stream, kernel, kernel,
+    # stream
+    turns = [device_ms(f) for f in (stream_fn, kernel, kernel, stream_fn)]
+    log("B1 device ms in turns (stream, kernel RNG, kernel RNG, stream):",
+        json.dumps(turns))
+    times = (min(turns[1:3]), device_ms(plain, reps=20, warmup=3),
+             call_ms(kernel), call_ms(plain, reps=30, warmup=3))
+    n_bytes, n_ops = b1_work(st.x, rows, scal, len(means), kernel_rng=True)
+    rec = kernel_record(
+        "fused_chunk_kernel_rng", "bipymc_tpu_torch/csrc/fused_chunk.cu",
+        "bipymc_tpu/ops/fused_chunk.py:242", max(ex, el), times, n_bytes,
+        n_ops)
+    rec["rng"] = "kernel (_draw_kernel_randomness :73)"
+    rec["turns_ms"] = {"stream": [turns[0], turns[3]],
+                       "kernel_rng": [turns[1], turns[2]]}
+    return rec
 
 
 # ---------------------------------------------------------------- phase 3
@@ -572,9 +734,11 @@ def busy_share(s, n_units=200, per_unit=1, unit="gen"):
     return wall_us
 
 
-# ---------------------------------------------------------------- phase 3b
-def fused_path(dev):
-    """Config 3 on the fused engine, as ``bench.py`` times it."""
+# ---------------------------------------------------------- phases 3b, 3c
+def fused_path(dev, rng="stream"):
+    """Config 3 on the fused engine, as ``bench.py`` times it, with B1 in
+    stream mode (3b) or kernel-RNG mode (3c). Returns the launch counts,
+    the result line and the sampler."""
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
@@ -583,8 +747,9 @@ def fused_path(dev):
     log_prob, means, theta0 = config3_setup(dev)
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
                    burnin_gens=BURNIN, archive_capacity=CAPACITY, fused=True,
-                   device=dev)
+                   fused_rng=rng, device=dev)
     distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
+    fused_chunk.kernel_rng_launches = 0
     t0 = time.perf_counter()
     s.run_mcmc(WARM_GENS, theta0)
     warm_s = time.perf_counter() - t0
@@ -592,14 +757,18 @@ def fused_path(dev):
     s.run_mcmc(TIMED_GENS)
     elapsed = time.perf_counter() - t0
     launches = {"fused_chunk": fused_chunk.launches,
+                "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches,
                 "dream_propose": dream_propose.launches,
                 "distinct_idx": distinct_idx.launches}
     n_chunks = (WARM_GENS + TIMED_GENS - BURNIN) // 10
-    want = {"fused_chunk": n_chunks, "dream_propose": BURNIN,
-            "distinct_idx": BURNIN + n_chunks}
+    # fused_chunk counts B1's launches in either mode; no stream-mode
+    # launch may occur in kernel-RNG mode, nor the reverse
+    want = {"fused_chunk": n_chunks,
+            "fused_chunk_kernel_rng": n_chunks if rng == "kernel" else 0,
+            "dream_propose": BURNIN, "distinct_idx": BURNIN + n_chunks}
     if launches != want:
-        raise AssertionError(f"fused config 3 launched {launches}, want "
-                             f"{want}")
+        raise AssertionError(f"fused config 3 ({rng}) launched {launches}, "
+                             f"want {want}")
 
     chains = s.get_chain(discard=WARM_GENS)          # [256, 5000, 100]
     if chains.shape != (N_CHAINS, TIMED_GENS, D) or \
@@ -615,20 +784,35 @@ def fused_path(dev):
         "acceptance": float(np.mean(s._history["accepted"][WARM_GENS:])),
         "mode_occupancy": occ.tolist(), "warmup_s": warm_s,
         "timed_s": elapsed, "launches": launches}
-    log("fused main path:", json.dumps(result))
+    log("fused main path:" if rng == "stream" else
+        "fused main path, kernel RNG:", json.dumps(result))
     if occ.min() == 0:
         raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
     if not bool(torch.all(torch.isfinite(s.final_state.logp))):
-        raise AssertionError("fused config 3: a final logp is not finite")
+        raise AssertionError(f"fused config 3 ({rng}): a final logp is not "
+                             "finite")
     busy_share(s, n_units=20, per_unit=10, unit="chunk")
-    rhat_stop(dev, fused=True)
-    return launches["fused_chunk"]
+    rhat_stop(dev, fused=True, rng=rng)
+    return launches, result, s
+
+
+def fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel):
+    """Phases 3b and 3c's results on one line, then a chunk's wall and
+    busy time of the two samplers in turns (stream, kernel RNG, kernel
+    RNG, stream)."""
+    keys = ("gens_per_sec", "ess_per_sec", "acceptance", "mode_occupancy")
+    log("config 3 fused, stream vs kernel RNG:", json.dumps(
+        {k: [stream_res[k], kernel_res[k]] for k in keys}))
+    walls = [busy_share(s, n_units=20, per_unit=10, unit="chunk")
+             for s in (s_stream, s_kernel, s_kernel, s_stream)]
+    log("wall us a chunk in turns (stream, kernel RNG, kernel RNG, "
+        "stream):", json.dumps(walls))
 
 
 # ---------------------------------------------------------------- phase 4
-def rhat_stop(dev, fused=False):
+def rhat_stop(dev, fused=False, rng="stream"):
     """The within-basin R̂ stop; with ``fused`` the chunks after burn-in
-    run on the fused engine."""
+    run on the fused engine, B1 in mode ``rng``."""
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
@@ -641,9 +825,11 @@ def rhat_stop(dev, fused=False):
                          center=means[2], device=dev)
     burnin = 1000
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED, burnin_gens=burnin,
-                   archive_capacity=CAPACITY, fused=fused, device=dev)
+                   archive_capacity=CAPACITY, fused=fused, fused_rng=rng,
+                   device=dev)
     kw = dict(rhat_tol=1.1, chunk=200, max_chunks=150, warmup_chunks=6)
     distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
+    fused_chunk.kernel_rng_launches = 0
     warm = s.run_mcmc_until(theta0, **kw)
     s.reset()
     t0 = time.perf_counter()
@@ -652,18 +838,21 @@ def rhat_stop(dev, fused=False):
     steps, rhat = int(info["steps"]), float(np.max(info["rhat"]))
     launches = {"distinct_idx": distinct_idx.launches,
                 "dream_propose": dream_propose.launches,
-                "fused_chunk": fused_chunk.launches}
+                "fused_chunk": fused_chunk.launches,
+                "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches}
     n_gens = int(warm["steps"]) + steps
     # the fused run: burn-in per generation in each call (the stop comes
     # after the 6 warm-up chunks, past burn-in), then chunks of 10
     pergen = 2 * burnin if fused else n_gens
     n_chunks = (n_gens - pergen) // 10
     want = {"distinct_idx": pergen + n_chunks, "dream_propose": pergen,
-            "fused_chunk": n_chunks}
+            "fused_chunk": n_chunks,
+            "fused_chunk_kernel_rng": n_chunks if rng == "kernel" else 0}
     if launches != want:
         raise AssertionError(f"R-hat runs ({n_gens} generations): launched "
                              f"{launches}, want {want}")
-    label = "fused rhat stop:" if fused else "rhat stop:"
+    label = ("rhat stop:" if not fused else "fused rhat stop:"
+             if rng == "stream" else "fused kernel-RNG rhat stop:")
     log(label, json.dumps({"wall_s": wall, "gens": steps, "rhat_max": rhat,
                            "mode_occupancy": bt.mode_occupancy(
                                s.final_state.x.cpu().numpy(),
@@ -1710,10 +1899,16 @@ def main():
     records = [check_b3(dev), check_b2(dev), check_b4(dev), check_b5(dev),
                check_b6(dev)]
     records[3]["config5_grad"] = check_b5_grad(dev)
-    records += [check_b7(dev), check_b8(dev), check_b1(dev)]
+    records += [check_b7(dev), check_b8(dev), check_b1(dev),
+                check_b1_kernel_rng(dev)]
     launch_floor(dev)
     launches = main_path(dev)
-    launches["fused_chunk"] = fused_path(dev)
+    stream_launches, stream_res, s_stream = fused_path(dev)
+    kernel_launches, kernel_res, s_kernel = fused_path(dev, rng="kernel")
+    launches["fused_chunk"] = stream_launches["fused_chunk"]
+    launches["fused_chunk_kernel_rng"] = \
+        kernel_launches["fused_chunk_kernel_rng"]
+    fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel)
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)

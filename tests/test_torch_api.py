@@ -116,8 +116,7 @@ def test_input_probes_raise():
 
 
 @pytest.mark.parametrize("kw", [
-    {"fused": True, "fused_rng": "kernel"}, {"mesh": object()},
-    {"fused_rng": "kernel"},
+    {"mesh": object()},
     {"fused_z_update": 2}, {"fused_gather": "kernel"},
     {"log_prob_block": lambda x: x}, {"shard_archive": True},
     {"pallas_accept": True}, {"gather_kernel": True}])

@@ -23,7 +23,9 @@ relative to its max, of it and of the plain version (chip_smoke.py's
 GRAM_TOL). B1 must take the same accept decisions as its plain version,
 except a bit the plain version puts within 1e-4 of its threshold, with x
 within rtol 1e-5 / atol 1e-5 and logp within rtol 1e-5 / atol 1e-4 (B2's
-tolerances: |logp| reaches ~200 at d = 100). B7 is held within
+tolerances: |logp| reaches ~200 at d = 100), in kernel-RNG mode too,
+against its plain version on the same Philox words and, fed stream
+words as ``test_bits``, against stream mode. B7 is held within
 5e-6·max|L| of its plain version on SPD
 matrices (B6's bound), B8 within 1e-5·max|x| (two float32 substitutions
 summing in other orders); their gradients, and B5's and B6's, within
@@ -42,7 +44,9 @@ from bipymc_tpu_torch.core.rng import draw_words
 from bipymc_tpu_torch.ensemble.indices import distinct_from_bits
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
-from bipymc_tpu_torch.ops.fused_chunk import fused_chunk, fused_chunk_plain
+from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
+from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk, fused_chunk_plain,
+                                              kernel_rng_draws)
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
@@ -440,6 +444,142 @@ def test_dreamzs_fused_on_card_matches_per_generation_engine(cuda):
                         (ops[4][..., 5] - ref_la).abs().cpu())
         break
     assert np.all(np.isfinite(fh["x"])) and 0 < fh["accepted"].mean() < 1
+
+
+KEY = 0x0123456789ABCDEF
+KEY_HI = 0xF123456789ABCDEF      # top bit set: a key ≥ 2⁶³ through uint64
+
+
+def _b1_kernel_rng_both(lp, x0, rows, scal, d, t0=500, test_bits=None,
+                        key=KEY):
+    """Kernel-RNG B1 and its plain version (the same words) on one
+    operand set: (kernel outputs, plain outputs, plain log α)."""
+    G, n = scal.shape[:2]
+    lp0 = lp(x0)
+    before = (fused_chunk.launches, fused_chunk.kernel_rng_launches)
+    out = fused_chunk(x0, lp0, rows, None, None, None, scal, lp, d_true=d,
+                      rng="kernel", run_key=key, t0=t0, test_bits=test_bits,
+                      **KW)
+    torch.cuda.synchronize()
+    assert (fused_chunk.launches, fused_chunk.kernel_rng_launches) == (
+        before[0] + 1, before[1] + 1)
+    draws = kernel_rng_draws(key, t0, G, n, d, x0.device, test_bits)
+    args = (x0, lp0, rows, *draws, scal, lp)
+    return (out, fused_chunk_plain(*args, d_true=d, **KW),
+            plain_log_alpha(*args, d_true=d, **KW))
+
+
+def _b1_hold(out, ref, ref_la, scal):
+    kept, _ = match_decisions(out[2], ref[2], (scal[..., 5] - ref_la).abs())
+    assert bool(kept[0].all())
+    torch.testing.assert_close(out[0][kept], ref[0][kept], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out[1][kept], ref[1][kept], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d,kind,key", [
+    (10, 256, 100, "mixture", KEY), (10, 256, 100, "mixture", KEY_HI),
+    (1, 7, 3, "mixture", KEY_HI), (1, 7, 3, "gaussian", KEY_HI),
+    (10, 37, 129, "gaussian", KEY_HI)])
+def test_b1_kernel_rng_matches_plain(cuda, G, n, d, kind, key):
+    """Kernel-RNG B1 at config 3's shape and the ragged ones of phase 2e
+    against its plain version on the same Philox words (B1's
+    tolerances), under run keys below and above 2⁶³."""
+    lp = _b1_target(kind, d)
+    x0, rows, _, _, _, scal = _b1_operands(G, n, d, seed=G + n + d,
+                                           device=cuda)
+    out, ref, ref_la = _b1_kernel_rng_both(lp, x0, rows, scal, d, key=key)
+    _b1_hold(out, ref, ref_la, scal)
+    assert 0 < int(out[2].sum()) < out[2].numel() or G == 1
+
+
+@pytest.mark.cuda
+def test_b1_kernel_rng_on_stream_words_takes_stream_decisions(cuda):
+    """Fed words as ``test_bits``, kernel-RNG B1 against stream-mode B1
+    on the same words converted by ``bits_to_uniform`` and
+    ``uniform_to_normal``: the same decisions (a bit excused only where
+    the plain version's |log u − log α| < 1e-4)."""
+    G, n, d = 10, 256, 100
+    lp = _b1_target("mixture", d)
+    x0, rows, _, _, _, scal = _b1_operands(G, n, d, seed=11, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tb = tuple(torch.randint(-2 ** 31, 2 ** 31, (G, n, d), generator=g,
+                             device=cuda, dtype=torch.int32)
+               for _ in range(3))
+    out, ref, ref_la = _b1_kernel_rng_both(lp, x0, rows, scal, d,
+                                           test_bits=tb)
+    _b1_hold(out, ref, ref_la, scal)
+    stream = fused_chunk(x0, lp(x0), rows, bits_to_uniform(tb[0]),
+                         bits_to_uniform(tb[1]),
+                         uniform_to_normal(bits_to_uniform(tb[2])), scal, lp,
+                         d_true=d, **KW)
+    kept, _ = match_decisions(out[2], stream[2],
+                              (scal[..., 5] - ref_la).abs())
+    torch.testing.assert_close(out[0][kept], stream[0][kept], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_b1_kernel_rng_rejects_a_nonfinite_proposal(cuda):
+    lp = _b1_target("mixture", 4)
+    x0, rows, _, _, _, scal = _b1_operands(5, 8, 4, seed=3, device=cuda)
+    rows[2, 3] = torch.inf
+    out, ref, _ = _b1_kernel_rng_both(lp, x0, rows, scal, 4)
+    assert torch.equal(out[2], ref[2]) and not bool(out[2][2, 3])
+    assert bool(torch.all(torch.isfinite(out[0])))
+
+
+@pytest.mark.cuda
+def test_b1_kernel_rng_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    lp = _b1_target("mixture", 4)
+    x0, rows, _, _, _, scal = _b1_operands(3, 4, 4, 0, cuda)
+    kw = dict(d_true=4, rng="kernel", run_key=KEY, t0=0, **KW)
+    args = [x0, lp(x0), rows, None, None, None, scal, lp]
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        fused_chunk(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                      for a in args], **kw)
+    tb = [torch.zeros((3, 4, 4), dtype=torch.int32, device=cuda)
+          for _ in range(3)]
+    with pytest.raises(ValueError, match="test_bits\\[2\\] must be"):
+        fused_chunk(*args, test_bits=(tb[0], tb[1], tb[2][:, :3]), **kw)
+    with pytest.raises(ValueError, match="int32"):
+        fused_chunk(*args, test_bits=(tb[0], tb[1], tb[2].float()), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_chunk(*args, test_bits=(
+            tb[0], tb[1].transpose(1, 2).contiguous().transpose(1, 2),
+            tb[2]), **kw)
+
+
+@pytest.mark.cuda
+def test_dreamzs_kernel_rng_on_card_launches_only_kernel_mode_b1(cuda):
+    """``DreamZs(fused=True, fused_rng="kernel")`` on the card: after
+    burn-in every chunk is one kernel-RNG launch of B1 and none in
+    stream mode, B2 only through burn-in; the R̂ stop also runs
+    kernel-RNG chunks."""
+    n, d, burnin, gens = 64, 20, 100, 60
+    means = bt.baseline_config3_means(d)
+    theta0 = bt.stratified_mode_init(
+        torch.Generator(device=cuda).manual_seed(0), means, n, device=cuda)
+    s = bt.DreamZs(bt.gaussian_mixture(means), n_chains=n, seed=0,
+                   burnin_gens=burnin, archive_capacity=2048, fused=True,
+                   fused_rng="kernel", device=cuda)
+    b1, k1, b2 = (fused_chunk.launches, fused_chunk.kernel_rng_launches,
+                  dream_propose.launches)
+    s.run_mcmc(burnin + gens, theta0)
+    assert fused_chunk.launches - b1 == gens // 10
+    assert fused_chunk.kernel_rng_launches - k1 == gens // 10
+    assert dream_propose.launches - b2 == burnin
+    h = s._history
+    assert np.all(np.isfinite(h["x"])) and 0 < h["accepted"].mean() < 1
+    b1, k1 = fused_chunk.launches, fused_chunk.kernel_rng_launches
+    info = s.reset().run_mcmc_until(theta0, rhat_tol=1.5, chunk=50,
+                                    max_chunks=20, warmup_chunks=2)
+    n_chunks = (int(info["steps"]) - burnin) // 10
+    assert n_chunks > 0
+    assert fused_chunk.launches - b1 == fused_chunk.kernel_rng_launches - \
+        k1 == n_chunks
 
 
 # ---- kernels B5 and B6: sqdist and the batched Cholesky --------------------

@@ -238,7 +238,7 @@ def test_api_fused_rejects_unsupported_config():
     with pytest.raises(ValueError, match="fused_rng"):
         bt.DreamZs(lp, n_chains=8, fused=True, fused_rng="bogus",
                    device="cpu")
-    for kw in ({"fused_rng": "kernel"}, {"fused_z_update": 2},
+    for kw in ({"fused_z_update": 2},
                {"fused_gather": "kernel"}, {"log_prob_block": lambda x: x},
                {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
