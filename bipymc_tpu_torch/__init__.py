@@ -19,6 +19,10 @@ The user's target is a batched ``log_prob(x[n, d]) -> [n]``. Ported:
   per launch of ``ops/fused_rw_chunk.py`` (B4), which evaluates the
   built-in targets ``correlated_gaussian`` and ``gaussian_mixture`` in
   device code.
+- The affine-invariant ensemble sampler (``EnsembleSampler``, the
+  Goodman–Weare stretch move with emcee's red-black update): per
+  generation, or with ``fused=True`` 64 generations per launch of
+  ``ops/fused_stretch.py`` (B9), on the built-in targets.
 - GP regression (``GpRegressor``: fit, predict and the log marginal
   likelihood, batched over chains), whose Gram matrices go through
   ``ops/pallas_kernels.py`` (B5) and whose batched factor-and-solve goes
@@ -43,6 +47,11 @@ device::
     s = bt.Dram(lp, seed=1, n_chains=1, fused=True)
     s.run_mcmc(20000, [0.0, 0.0], cov_est=np.eye(2))
 
+    scales = np.linspace(0.5, 3.0, 16)
+    lp = bt.correlated_gaussian(np.zeros(16), np.diag(scales ** 2))
+    s = bt.EnsembleSampler(lp, n_chains=256, seed=0, fused=True)
+    s.run_mcmc(20000, x0)                     # x0 [256, 16]: 313 B9 launches
+
     gp = bt.GpRegressor()
     def log_post(theta):                                  # [64, 4] → [64]
         p = {"log_lengthscale": theta[:, :2], "log_sigma_f": theta[:, 2],
@@ -61,7 +70,8 @@ from bipymc_tpu_torch.models.targets import (baseline_config3_means,
                                              stratified_mode_init)
 from bipymc_tpu_torch.samplers.api import (AdaptiveMetropolis, Dram,
                                            DreamZs, DrMetropolis,
-                                           McmcSampler, Metropolis)
+                                           EnsembleSampler, McmcSampler,
+                                           Metropolis)
 from bipymc_tpu_torch.utils.diagnostics import (effective_sample_size,
                                                 ess_rate, gelman_rubin,
                                                 mode_occupancy)
@@ -72,6 +82,7 @@ __all__ = [
     "DrMetropolis",
     "Dram",
     "DreamZs",
+    "EnsembleSampler",
     "GpFit",
     "GpRegressor",
     "McmcSampler",

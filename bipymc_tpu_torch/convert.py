@@ -5,7 +5,8 @@ A JAX ``DreamState`` flattened with ``np.asarray`` under its field names
 ``cr_p``, ``cr_cum``, ``cr_jump``, ``cr_count``, ``logp_sum``, ``gen``)
 becomes the port's state and back, so both packages can start from, and
 be compared at, the same state. The same holds for the random-walk
-family's batched ``RwState``, and for the GP's params dict (both ways:
+family's batched ``RwState``, the stretch sampler's ``StretchState``,
+and for the GP's params dict (both ways:
 an ``optimize`` result can go either way) and ``GpFit``. Nothing here imports JAX.
 """
 
@@ -16,6 +17,7 @@ from bipymc_tpu_torch.ensemble.archive import Archive
 from bipymc_tpu_torch.gp.regressor import GpFit
 from bipymc_tpu_torch.samplers.dream import DreamState
 from bipymc_tpu_torch.samplers.rw import RwState
+from bipymc_tpu_torch.samplers.stretch import StretchState
 
 _TENSORS = ("x", "logp", "cr_p", "cr_cum", "cr_jump", "cr_count",
             "logp_sum")
@@ -70,6 +72,23 @@ def rw_state_to_numpy(state: RwState) -> dict:
            for name in _RW_TENSORS}
     out["count"] = np.full(state.theta.shape[0], state.count, np.int32)
     return out
+
+
+def stretch_state_from_numpy(fields: dict, device) -> StretchState:
+    """``{name: array}`` of a JAX ``StretchState`` (``x``, ``logp``,
+    ``gen``) → ``StretchState``."""
+    return StretchState(
+        x=torch.as_tensor(np.array(fields["x"]), device=device),
+        logp=torch.as_tensor(np.array(fields["logp"]), device=device),
+        gen=int(fields["gen"]))
+
+
+def stretch_state_to_numpy(state: StretchState) -> dict:
+    """``StretchState`` → ``{name: np.ndarray}`` under the JAX field
+    names, ``gen`` as an int32 scalar."""
+    return {"x": state.x.detach().cpu().numpy(),
+            "logp": state.logp.detach().cpu().numpy(),
+            "gen": np.int32(state.gen)}
 
 
 def gp_params(params: dict, device) -> dict:

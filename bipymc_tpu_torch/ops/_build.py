@@ -12,8 +12,9 @@ hash of their source and of the shared headers (``csrc/*.cuh``), so an
 edited source is rebuilt and an unchanged one is reused.
 
 Pointers and the current CUDA stream pass as Python ints; each C entry
-point returns the launch's ``cudaError_t``, which :func:`check` turns
-into an exception.
+point returns the launch's ``cudaError_t``, or :data:`ERR_SHARED_MEMORY`
+where it refuses the operands' shapes before launching, which
+:func:`check` turns into an exception.
 """
 
 import ctypes
@@ -34,6 +35,9 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _U64 = ctypes.c_uint64
+# an entry point's refusal, before any launch: the operands' shapes need
+# more shared memory than a block may take (csrc/*.cu return it as -1)
+ERR_SHARED_MEMORY = -1
 # C signatures of the entry points, by source name
 SIGNATURES = {
     "distinct_idx": ("distinct_idx_launch",
@@ -48,6 +52,9 @@ SIGNATURES = {
                     [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _U64, _L,
                      _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
                      _I, _F, _F, _P, _P, _P, _P]),
+    "fused_stretch": ("fused_stretch_launch",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F,
+                       _P, _P, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),
@@ -127,7 +134,11 @@ def library(name: str):
 
 
 def check(err: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error."""
+    """Raise if a launch reported a CUDA error (``RuntimeError``) or the
+    entry point refused the shapes (``ValueError``)."""
+    if err == ERR_SHARED_MEMORY:
+        raise ValueError(f"kernel {name}: the operands' shapes do not fit "
+                         "the shared memory a block may take")
     if err != 0:
         raise RuntimeError(f"CUDA launch of kernel {name} failed: "
                            f"cudaError_t {err}")

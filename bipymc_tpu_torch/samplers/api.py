@@ -1,8 +1,9 @@
 """User-facing sampler classes with the reference's ergonomics.
 
-Counterpart of the parts of ``bipymc_tpu/samplers/api.py`` that DREAM-zs
-and the random-walk family (``Metropolis``, ``AdaptiveMetropolis``,
-``DrMetropolis``, ``Dram``) use: ``sampler = Dram(log_prob, ...);
+Counterpart of the parts of ``bipymc_tpu/samplers/api.py`` that DREAM-zs,
+the random-walk family (``Metropolis``, ``AdaptiveMetropolis``,
+``DrMetropolis``, ``Dram``) and the stretch ensemble sampler
+(``EnsembleSampler``) use: ``sampler = Dram(log_prob, ...);
 sampler.run_mcmc(n, theta_0)``, results through ``chain`` / ``get_chain``
 / ``acceptance_fraction``, the R̂-stopped ``run_mcmc_until``, the
 continuation contract and ``reset``.
@@ -27,12 +28,15 @@ import torch
 
 from bipymc_tpu_torch.core.rng import StepWords, seed_ints
 from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
+from bipymc_tpu_torch.ops.fused_stretch import check_walkers
 from bipymc_tpu_torch.parallel.pool import ChainPool
-from bipymc_tpu_torch.samplers import dream, rw
+from bipymc_tpu_torch.samplers import dream, rw, stretch
 from bipymc_tpu_torch.samplers.dream_fused import (check_fusable,
                                                    make_chunk_runner)
 from bipymc_tpu_torch.samplers.rw_fused import (check_rw_fusable,
                                                 make_rw_chunk_runner)
+from bipymc_tpu_torch.samplers.stretch_fused import \
+    make_chunk_runner as make_stretch_runner
 from bipymc_tpu_torch.utils.diagnostics import acceptance_fraction
 from bipymc_tpu_torch.utils.init import var_ball
 
@@ -42,6 +46,8 @@ _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _API_ITEM = "ROADMAP Queue A item 7 (pool and API)"
 _RW_BLOCK_ITEM = ("ROADMAP Queue A item 10 (RW family: user targets in "
                   "kernel B4)")
+_BLOCK_ITEM = ("ROADMAP Queue A item 18b (user targets in the fused "
+               "kernels)")
 
 
 def _as_2d_theta0(theta_0, n_chains, gen, spread, dtype, device):
@@ -170,6 +176,112 @@ class McmcSampler:
         self._history_np = None
         self._super_chain_np = None
         self._steps_run += n_steps
+
+
+def _host(info):
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in info.items()}
+
+
+class EnsembleSampler(McmcSampler):
+    """Affine-invariant ensemble sampler: the Goodman & Weare (2010)
+    stretch move with emcee's red-black parallel update
+    (``samplers/stretch.py``). Use n_chains ≥ 2d + 2 walkers.
+
+    ``fused=True`` runs every ``run_mcmc`` with ``thin == 1`` and every
+    ``run_mcmc_until`` on the fused engine (``samplers/stretch_fused.py``:
+    64 generations per launch of kernel B9, a shorter last chunk). Both
+    engines read the same words for the same generation
+    (``core/rng.StepWords``), so they take the same decisions. The fused
+    engine takes at most 1,024 walkers, is float32-only and needs a
+    target with a kernel form (``models/targets.KERNEL_TARGETS``).
+
+    Not ported, raising ``NotImplementedError``: ``move="walk"``,
+    ``mesh=``, ``log_prob_block`` and ``progress_every``.
+    """
+
+    def __init__(self, log_like_fn, n_chains=32, seed=0, dtype=torch.float32,
+                 mesh=None, fused=False, log_prob_block=None, device="cuda",
+                 **config_kw):
+        if mesh is not None:
+            raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
+        if log_prob_block is not None:
+            raise NotImplementedError(
+                f"log_prob_block= is not ported: {_BLOCK_ITEM}")
+        super().__init__(log_like_fn, seed=seed, dtype=dtype, device=device)
+        self.n_chains = int(n_chains)
+        self.cfg = stretch.StretchConfig(n_chains=self.n_chains, **config_kw)
+        self._pool_obj = ChainPool(
+            step=stretch.make_step(log_like_fn, self.cfg),
+            n_words=stretch.n_words, collect_fn=self._collect)
+        self.fused = bool(fused)
+        self._words = None
+        if self.fused:
+            check_walkers(self.n_chains)
+            if dtype != torch.float32:
+                raise ValueError("fused=True is float32-only (kernel B9 "
+                                 "computes in float32)")
+            if kernel_form(log_like_fn) is None:
+                raise ValueError(
+                    "fused=True needs a target that kernel B9 evaluates in "
+                    f"device code: {', '.join(KERNEL_TARGETS)} "
+                    "(bipymc_tpu_torch.models.targets); run other targets "
+                    "with fused=False")
+
+    @staticmethod
+    def _collect(state, info):
+        return {"x": state.x, "logp": info.logp, "accepted": info.accepted}
+
+    def reset(self):
+        self._words = None
+        return super().reset()
+
+    def _ensure_state(self, theta_0, spread):
+        if self._continuing(theta_0, spread=spread):
+            return self._final_state
+        init_seed, run_key = seed_ints(self.seed, 2)
+        g_init = torch.Generator(device=self.device).manual_seed(init_seed)
+        self._words = StepWords(run_key)
+        x0 = _as_2d_theta0(theta_0, self.n_chains, g_init, spread,
+                           self.dtype, self.device)
+        return stretch.init(x0, self.log_like_fn)
+
+    def run_mcmc(self, n_gens, theta_0=None, thin=1, spread=1.0,
+                 progress_every=None):
+        """Run ``n_gens`` generations from ``theta_0`` ([d], dispersed by
+        ``spread``, or [n_chains, d]), keeping every ``thin``-th."""
+        if progress_every is not None:
+            raise NotImplementedError(
+                f"progress_every is not ported: {_API_ITEM}")
+        state = self._ensure_state(theta_0, spread)
+        if self.fused and thin == 1:
+            final_state, history = make_stretch_runner(
+                self.log_like_fn, self.cfg)(state, self._words, n_gens,
+                                            self._steps_run)
+        else:
+            final_state, history = self._pool_obj.run(
+                state, self._words, n_gens, thin=thin, t0=self._steps_run)
+        self._store(final_state, history, n_gens)
+        return self
+
+    def run_mcmc_until(self, theta_0=None, rhat_tol=1.05, chunk=100,
+                       max_chunks=200, warmup_chunks=2, spread=1.0):
+        """Run until the streamed R̂ < rhat_tol. Keeps no history; returns
+        a dict with ``steps`` taken, the final ``rhat`` [d], and the
+        streamed per-walker ``mean``/``var`` ([n_chains, d]), as host
+        NumPy. With ``fused=True`` every chunk runs on the fused engine."""
+        state = self._ensure_state(theta_0, spread)
+        runner = (make_stretch_runner(self.log_like_fn, self.cfg,
+                                      collect="rhat") if self.fused
+                  else None)
+        final_state, info = self._pool_obj.run_until(
+            state, self._words, rhat_tol=rhat_tol, chunk=chunk,
+            max_chunks=max_chunks, warmup_chunks=warmup_chunks,
+            t0=self._steps_run, chunk_runner=runner)
+        self._final_state = final_state
+        self._sync()
+        self._steps_run += int(info["steps"])
+        return _host(info)
 
 
 class DreamZs(McmcSampler):
@@ -353,8 +465,7 @@ class DreamZs(McmcSampler):
         self._final_state = final_state
         self._sync()
         self._steps_run += int(info["steps"])
-        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                    else np.asarray(v)) for k, v in info.items()}
+        return _host(info)
 
 
 # ===========================================================================
@@ -508,8 +619,7 @@ class _RwSampler(McmcSampler):
         self._final_state = final_state
         self._sync()
         self._steps_run += int(info["steps"])
-        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                    else np.asarray(v)) for k, v in info.items()}
+        return _host(info)
 
 
 class Metropolis(_RwSampler):

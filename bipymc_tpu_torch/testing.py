@@ -1,16 +1,18 @@
-"""Helpers that hold kernel B1 against its plain version.
+"""Helpers that hold kernels B1 and B9 against their plain versions.
 
 Used by ``chip_smoke.py`` and the tests; no sampler path calls them.
 A float32 kernel and its plain version may round a Metropolis decision
 differently where log u lies within rounding of log α, so the checks
-read the plain version's log α (:func:`plain_log_alpha`) and excuse only
-such near ties (:func:`match_decisions`).
+read the plain version's log α (:func:`plain_log_alpha`,
+:func:`stretch_log_alpha`) and excuse only such near ties
+(:func:`match_decisions`, :func:`match_stretch_decisions`).
 """
 
 import torch
 
 from bipymc_tpu_torch.ops.dream_proposal import propose_plain
 from bipymc_tpu_torch.ops.fused_chunk import S_LOGU, metropolis_select
+from bipymc_tpu_torch.ops.fused_stretch import stretch_generation
 
 
 def plain_log_alpha(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
@@ -51,3 +53,44 @@ def match_decisions(acc, ref_acc, ref_margin, tol=1e-4):
             f"reference's with |log u - log alpha| = "
             f"{float(ref_margin[g, i]):.3g} >= {tol}")
     return gen < first, int((first < G).sum())
+
+
+def stretch_log_alpha(x0, logp0, j, z, log_u, log_prob):
+    """Each decision's log α [G, n] along ``fused_stretch_plain``'s
+    trajectory on the same arguments (the per-generation engine's too)."""
+    x, lp = x0, logp0
+    out = []
+    for g in range(j.shape[0]):
+        x, lp, _, la = stretch_generation(x, lp, j[g], z[g], log_u[g],
+                                          log_prob)
+        out.append(la)
+    return torch.stack(out)
+
+
+def match_stretch_decisions(acc, ref_acc, ref_margin, tol=1e-4):
+    """:func:`match_decisions` for the stretch move, whose walkers
+    interact: a walker's position feeds the other half's proposals, so
+    from the first generation in which a bit differs nothing further is
+    comparable. In that generation each differing bit of the first half
+    must lie within ``tol`` of its threshold (``ref_margin``), and so must
+    each of the second half unless the first half already differed.
+    Returns (kept [G, n] bool: the generations before, the number of
+    differing bits excused); raises ``AssertionError`` otherwise."""
+    diff = acc != ref_acc
+    G, n = acc.shape
+    half = n // 2
+    gen = torch.arange(G, device=acc.device)[:, None].expand(G, n)
+    rows = diff.any(1)
+    if not bool(rows.any()):
+        return torch.ones_like(acc, dtype=torch.bool), 0
+    g0 = int(rows.to(torch.uint8).argmax())
+    bad = diff[g0] & ~(ref_margin[g0] < tol)
+    if bool(diff[g0, :half].any()):
+        bad[half:] = False
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        raise AssertionError(
+            f"accept bit (generation {g0}, walker {i}) differs from the "
+            f"reference's with |log u - log alpha| = "
+            f"{float(ref_margin[g0, i]):.3g} >= {tol}")
+    return gen < g0, int(diff[g0].sum())

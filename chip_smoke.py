@@ -79,6 +79,16 @@ non-zero:
    stream-mode B1 on that chunk (the same rule). Timed at config 3's
    shape, stream and kernel-RNG mode in turns (stream, kernel, kernel,
    stream); its own record in the kernels line.
+2f. B9 (``fused_stretch``) against its plain version on the card: at the
+   stretch path's own shape, [G, n, d] = [64, 256, 16] on its target
+   with its start and its first chunk's words, and at (G, n, d) in {(64,
+   32, 16), (7, 2, 1), (5, 18, 3) on the mixture, (8, 1024, 16) (the
+   API's cap), (4, 256, 100) on config 3's mixture}, and with infinite
+   stretch factors, whose proposals both versions must reject. Accept
+   bits equal, except a bit the plain version puts within 1e-4 of its
+   threshold (then, as the walkers interact, every later generation is
+   left out); x and logp within ``B9_TOL``. Timed at the stretch path's
+   shape.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -139,7 +149,23 @@ non-zero:
    route between two with the kernels, the device's busy share of an
    Adam step and of a DREAM generation, and 200 generations of the
    "lcb" surrogate, B8 once a generation.
-9. One JSON line of the kernels, the card's line, and the result line.
+9. The stretch workload of ``benchmarks/profile_stretch_fused.py:30-47``
+   through ``EnsembleSampler(fused=True)``: 256 walkers in d = 16 on
+   N(0, diag(scales²)), scales = linspace(0.5, 3, 16), from x0 = N(0,
+   1)·scales (NumPy, the seed), a run of 20,000 generations and a timed
+   continuation of 20,000. B9 must have launched 313 times a run (312
+   chunks of 64 and one of 32), every final logp be finite, each mean
+   within 5 SE of 0 (SE from ``ess_rate``'s ESS over its window), each
+   variance within 10 % of scale², the acceptance in (0.1, 0.9). Then
+   ``fused=False`` for 2,000 generations from the same start and seed:
+   the fused run's decisions (the rule of phase 2f), and bit-equal
+   positions until a decision differs. Both engines' gens/s and ESS/s;
+   100 generations and 20 chunks timed alone and under the profiler; the
+   R̂ stop to 1.1 on
+   both engines (warm call, ``reset()``, timed call), which must stop at
+   the same generation, B9 launching twice a 100-generation chunk on the
+   fused engine and never on the other.
+10. One JSON line of the kernels, the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -664,6 +690,151 @@ def check_b1_kernel_rng(dev):
     rec["turns_ms"] = {"stream": [turns[0], turns[3]],
                        "kernel_rng": [turns[1], turns[2]]}
     return rec
+
+
+# ---------------------------------------------------------------- phase 2f
+# the stretch workload (benchmarks/profile_stretch_fused.py:30-47): 256
+# walkers in d = 16 on N(0, diag(scales²)), 20,000 generations a run, B9
+# at 64 generations a launch
+ST_N, ST_D, ST_G, ST_GENS, ST_PERGEN = 256, 16, 64, 20000, 2000
+# B9 against its plain version over the compared entries (B4's bound):
+# x* is one FMA on both sides, so x differs only where a decision did
+B9_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def stretch_setup():
+    """The stretch workload's target, scales and start x0 = N(0, 1)·scales
+    [256, 16], drawn from the seed with NumPy (phases 2f and 9)."""
+    import bipymc_tpu_torch as bt
+
+    scales = np.linspace(0.5, 3.0, ST_D).astype(np.float32)
+    lp = bt.correlated_gaussian(np.zeros(ST_D),
+                                np.diag(scales.astype(np.float64) ** 2))
+    x0 = (np.random.default_rng(SEED).standard_normal((ST_N, ST_D))
+          * scales).astype(np.float32)
+    return lp, scales, x0
+
+
+def b9_random_operands(G, n, d, seed, dev):
+    """Per-walker (j, z, log u) [G, n] from random words, converted as the
+    engines convert them, and x0 = 2·N(0, 1) [n, d]."""
+    from bipymc_tpu_torch.samplers.stretch import convert_words
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    words = torch.randint(-2 ** 31, 2 ** 31, (G, n, 3), generator=g,
+                          device=dev, dtype=torch.int32)
+    x0 = 2.0 * torch.randn((n, d), generator=g, device=dev)
+    return (x0, *convert_words(words, 2.0))
+
+
+def b9_compare(lp, x0, j, z, log_u, label):
+    """B9 against its plain version on one operand set; returns the
+    excused bits, max |dx| and max |dlogp| over the comparable entries,
+    and the kernel's outputs."""
+    from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
+                                                    fused_stretch_plain)
+    from bipymc_tpu_torch.testing import (match_stretch_decisions,
+                                          stretch_log_alpha)
+
+    half = x0.shape[0] // 2
+    lp0 = lp(x0)
+    out = fused_stretch(x0, lp0, j, z, log_u, lp, half)
+    ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, half)
+    ref_la = stretch_log_alpha(x0, lp0, j, z, log_u, lp)
+    torch.cuda.synchronize()
+    kept, excused = match_stretch_decisions(out[2], ref[2],
+                                            (log_u - ref_la).abs())
+    errs = []
+    for key, a, b in (("x", out[0][kept], ref[0][kept]),
+                      ("logp", out[1][kept], ref[1][kept])):
+        tol = B9_TOL["atol"] + B9_TOL["rtol"] * b.abs()
+        if not (bool(torch.all((a - b).abs() <= tol))
+                and bool(torch.all(torch.isfinite(a)))):
+            raise AssertionError(
+                f"B9 differs from its plain version ({label}): max "
+                f"|d{key}| {float((a - b).abs().max()):.3g}")
+        errs.append(float((a - b).abs().max()))
+    return excused, errs[0], errs[1], out
+
+
+def b9_work(G, n, d, kind, n_modes=0):
+    """(bytes, operations) of one B9 call: x0, logp0, (j, z, log u) and the
+    target's constants read once; x_hist, logp_hist and the accept bytes
+    written once. A walker-generation: x* (3d), the target (kind 0:
+    2d² + 3d + 4; kind 1: 3kd + 10k) and the accept (~30 with its log)."""
+    n_const = d * d + d if kind == 0 else n_modes * d + n_modes
+    n_bytes = 4 * (n * d + n + 3 * G * n + n_const + G * n * d + G * n) \
+        + G * n
+    target = 2 * d * d + 3 * d + 4 if kind == 0 else \
+        3 * n_modes * d + 10 * n_modes
+    return n_bytes, G * n * (3 * d + target + 30)
+
+
+def check_b9(dev):
+    """Phase 2f: B9 against its plain version at the stretch path's shape
+    (its first chunk's own words) and at edge shapes, then timed."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
+                                                    fused_stretch_plain)
+    from bipymc_tpu_torch.samplers.stretch_fused import chunk_words
+
+    lp, scales, x0_np = stretch_setup()
+    x0 = torch.from_numpy(x0_np).to(dev)
+    s = bt.EnsembleSampler(lp, n_chains=ST_N, seed=SEED, fused=True,
+                           device=dev)
+    s._ensure_state(x0, 1.0)                  # its run key's word source
+    main_ops = chunk_words(s._words, 0, ST_G, ST_N, ST_D, s.cfg.a,
+                           torch.float32, dev)
+    c3_lp = bt.gaussian_mixture(bt.baseline_config3_means(D), sigma=1.0)
+
+    def case(label, tgt, G, n, d, seed, x=None):
+        x_r, *ops = b9_random_operands(G, n, d, seed, dev)
+        return label, tgt, x_r if x is None else x, ops
+
+    x_big = torch.from_numpy((np.random.default_rng(SEED + 1)
+                              .standard_normal((1024, ST_D)) * scales)
+                             .astype(np.float32)).to(dev)
+    cases = [("main G=64 n=256 d=16 gaussian", lp, x0, main_ops),
+             case("G=64 n=32 d=16 gaussian", lp, 64, 32, ST_D, 1, x0[:32]),
+             case("G=7 n=2 d=1 gaussian", b4_target("gaussian", 1), 7, 2, 1,
+                  2),
+             case("G=5 n=18 d=3 mixture", b4_target("mixture", 3), 5, 18, 3,
+                  3),
+             case("G=8 n=1024 d=16 gaussian (the cap)", lp, 8, 1024, ST_D,
+                  4, x_big),
+             case("G=4 n=256 d=100 config-3 mixture", c3_lp, 4, 256, D, 5),
+             case("G=6 n=16 d=4 gaussian, non-finite",
+                  b4_target("gaussian", 4), 6, 16, 4, 6)]
+    # an infinite stretch factor makes x* infinite, so its target value is
+    # not finite: both versions must reject it
+    z_nf = cases[-1][3][1]
+    z_nf[1, 0] = z_nf[3, 15] = torch.inf
+    readings = {}
+    for label, tgt, x, ops in cases:
+        if not (tgt(x).isfinite().all()):
+            raise AssertionError(f"B9 case {label}: a start logp is not "
+                                 "finite")
+        e_bits, e_x, e_l, out = b9_compare(tgt, x, *ops, label)
+        if "non-finite" in label and (bool(out[2][1, 0])
+                                      or bool(out[2][3, 15])):
+            raise AssertionError("B9 accepted a non-finite proposal")
+        readings[label] = {"excused_bits": e_bits, "max_abs_dx": e_x,
+                           "max_abs_dlogp": e_l,
+                           "acceptance": float(out[2].float().mean())}
+    log(f"B9 fused_stretch: against the plain version, limits "
+        f"{json.dumps(B9_TOL)}:", json.dumps(readings))
+
+    lp0 = lp(x0)
+    kernel = lambda: fused_stretch(x0, lp0, *main_ops, lp, ST_N // 2)
+    plain = lambda: fused_stretch_plain(x0, lp0, *main_ops, lp, ST_N // 2)
+    times = (device_ms(kernel), device_ms(plain, reps=5, warmup=1),
+             call_ms(kernel), call_ms(plain, reps=10, warmup=2))
+    n_bytes, n_ops = b9_work(ST_G, ST_N, ST_D, 0)
+    return kernel_record(
+        "fused_stretch", "bipymc_tpu_torch/csrc/fused_stretch.cu",
+        "bipymc_tpu/ops/fused_stretch.py:125",
+        max(readings[cases[0][0]]["max_abs_dx"],
+            readings[cases[0][0]]["max_abs_dlogp"]), times, n_bytes, n_ops)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1869,6 +2040,144 @@ def config5_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+def stretch_run(s, x0, n_gens, want_launches):
+    """A first run of ``n_gens`` from x0 and a timed continuation of as
+    many; B9 must launch ``want_launches`` times in each. Returns the
+    timed run's seconds and the two runs' launches."""
+    from bipymc_tpu_torch.ops.fused_stretch import fused_stretch
+
+    launches = []
+    for start in (x0, None):
+        fused_stretch.launches = 0
+        t0 = time.perf_counter()
+        s.run_mcmc(n_gens, start)
+        elapsed = time.perf_counter() - t0
+        launches.append(fused_stretch.launches)
+    if launches != [want_launches] * 2:
+        raise AssertionError(f"stretch: B9 launched {launches} times in two "
+                             f"runs of {n_gens}, want {want_launches} each")
+    return elapsed, launches
+
+
+def stretch_rates(s, n_gens, elapsed):
+    """gens/s, ESS and ESS/s of the timed run (its last 2,000 generations)
+    and its acceptance."""
+    import bipymc_tpu_torch as bt
+
+    chains = s.get_chain(discard=s.super_chain.shape[1] - n_gens)
+    gens_per_sec = n_gens / elapsed
+    ess, ess_per_sec = bt.ess_rate(chains, gens_per_sec)
+    acc = float(np.mean(s._history["accepted"][-n_gens:]))
+    return chains, {"gens_per_sec": gens_per_sec, "ess_window": ess,
+                    "ess_per_sec": ess_per_sec, "acceptance": acc,
+                    "timed_s": elapsed}
+
+
+def stretch_path(dev):
+    """The stretch workload through ``EnsembleSampler``: fused (B9, 64
+    generations a launch), then the per-generation engine from the same
+    start and seed, their decisions held together, the posterior held to
+    the truth, a chunk's profile, and the R̂ stop on both engines."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.fused_stretch import fused_stretch
+    from bipymc_tpu_torch.samplers.stretch_fused import chunk_words
+    from bipymc_tpu_torch.testing import (match_stretch_decisions,
+                                          stretch_log_alpha)
+
+    lp, scales, x0 = stretch_setup()
+    per_run = -(-ST_GENS // ST_G)                  # 312 chunks of 64 + 32
+    s = bt.EnsembleSampler(lp, n_chains=ST_N, seed=SEED, fused=True,
+                           device=dev)
+    elapsed, launches = stretch_run(s, x0, ST_GENS, per_run)
+    chains, fused_res = stretch_rates(s, ST_GENS, elapsed)
+    if chains.shape != (ST_N, ST_GENS, ST_D) or \
+            not np.all(np.isfinite(chains)) or \
+            not bool(torch.all(torch.isfinite(s.final_state.logp))):
+        raise AssertionError(f"stretch history {chains.shape}, or a value "
+                             "or final logp is not finite")
+    # the posterior against the truth over the timed run: each mean within
+    # 5 SE of 0 (SE from ess_rate's ESS over the whole run), each variance
+    # within 10 % of scale²
+    flat = chains.astype(np.float64)
+    ess_run, _ = bt.ess_rate(chains, 1.0, window=ST_GENS)
+    se = np.sqrt(flat.var(axis=(0, 1)) / ess_run)
+    mean_z = np.abs(flat.mean(axis=(0, 1))) / se
+    var_rel = flat.var(axis=(0, 1)) / scales ** 2 - 1.0
+    del flat
+    fused_res.update(ess_run=ess_run, max_mean_over_se=float(mean_z.max()),
+                     max_abs_var_rel_err=float(np.abs(var_rel).max()),
+                     launches=launches)
+    log("stretch fused:", json.dumps(fused_res))
+    if mean_z.max() > 5.0 or np.abs(var_rel).max() > 0.1 or \
+            not 0.1 < fused_res["acceptance"] < 0.9:
+        raise AssertionError(
+            f"stretch posterior: max |mean|/SE {mean_z.max():.3g}, max "
+            f"|var/scale² - 1| {np.abs(var_rel).max():.3g}, acceptance "
+            f"{fused_res['acceptance']:.3g}")
+
+    # the per-generation engine from the same start and seed: the fused
+    # run's decisions over its first ST_PERGEN generations, a bit excused
+    # only at the per-generation engine's own near tie
+    p = bt.EnsembleSampler(lp, n_chains=ST_N, seed=SEED, device=dev)
+    fused_stretch.launches = 0
+    t0 = time.perf_counter()
+    p.run_mcmc(ST_PERGEN, x0)
+    p_elapsed = time.perf_counter() - t0
+    if fused_stretch.launches:
+        raise AssertionError("the per-generation engine launched B9")
+    _, pergen_res = stretch_rates(p, ST_PERGEN, p_elapsed)
+    xt = torch.from_numpy(x0).to(dev)
+    ops = chunk_words(p._words, 0, ST_PERGEN, ST_N, ST_D, p.cfg.a,
+                      torch.float32, dev)
+    margin = (ops[2] - stretch_log_alpha(xt, lp(xt), *ops, lp)).abs()
+    acc_f = torch.from_numpy(s._history["accepted"][:ST_PERGEN])
+    acc_p = torch.from_numpy(p._history["accepted"])
+    kept, excused = match_stretch_decisions(acc_f, acc_p, margin.cpu())
+    n_same = int(kept[:, 0].sum())
+    dx = np.abs(s._history["x"][:n_same] - p._history["x"][:n_same]).max()
+    pergen_res.update(generations_compared=n_same, excused_bits=excused,
+                      max_abs_dx_vs_fused=float(dx))
+    log("stretch per generation:", json.dumps(pergen_res))
+    if dx > 0.0:
+        raise AssertionError(f"per-generation and fused positions differ "
+                             f"before any decision did: {dx:.3g}")
+    log("stretch engines, per generation vs fused:", json.dumps(
+        {k: [pergen_res[k], fused_res[k]]
+         for k in ("gens_per_sec", "ess_per_sec", "acceptance")}))
+
+    busy_share(p, n_units=100)
+    busy_share(s, n_units=20, per_unit=ST_G, unit="chunk")
+
+    # the R̂ stop on both engines: warm call, reset(), timed call; B9 two
+    # launches a 100-generation chunk on the fused engine (64 + 36)
+    stops = {}
+    for name, smp in (("per_generation", p), ("fused", s)):
+        fused_stretch.launches = 0
+        warm = smp.reset().run_mcmc_until(x0, rhat_tol=1.1)
+        smp.reset()
+        t0 = time.perf_counter()
+        info = smp.run_mcmc_until(x0, rhat_tol=1.1)
+        wall = time.perf_counter() - t0
+        n_chunks = (int(warm["steps"]) + int(info["steps"])) // 100
+        want = 2 * n_chunks if name == "fused" else 0
+        if fused_stretch.launches != want:
+            raise AssertionError(f"stretch R-hat stop ({name}): B9 launched "
+                                 f"{fused_stretch.launches} times, want "
+                                 f"{want}")
+        rhat = float(np.max(info["rhat"]))
+        if not rhat < 1.1:
+            raise AssertionError(f"stretch R-hat stop ({name}) not reached: "
+                                 f"{rhat}")
+        stops[name] = {"wall_s": wall, "gens": int(info["steps"]),
+                       "rhat_max": rhat, "launches": fused_stretch.launches}
+    log("stretch rhat stop:", json.dumps(stops))
+    if stops["fused"]["gens"] != stops["per_generation"]["gens"]:
+        raise AssertionError("stretch R-hat stop: the engines stopped at "
+                             "different generations")
+    return sum(launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script "
@@ -1900,7 +2209,7 @@ def main():
                check_b6(dev)]
     records[3]["config5_grad"] = check_b5_grad(dev)
     records += [check_b7(dev), check_b8(dev), check_b1(dev),
-                check_b1_kernel_rng(dev)]
+                check_b1_kernel_rng(dev), check_b9(dev)]
     launch_floor(dev)
     launches = main_path(dev)
     stream_launches, stream_res, s_stream = fused_path(dev)
@@ -1915,6 +2224,7 @@ def main():
     launches.update(config4_path(dev))
     c5 = config5_path(dev)
     launches.update(chol=c5["chol"], trisolve=c5["trisolve"])
+    launches["fused_stretch"] = stretch_path(dev)
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(math.isfinite(r["ms"]) for r in records):

@@ -30,7 +30,12 @@ words as ``test_bits``, against stream mode. B7 is held within
 matrices (B6's bound), B8 within 1e-5·max|x| (two float32 substitutions
 summing in other orders); their gradients, and B5's and B6's, within
 1e-4 of the plain routes' (relative to the largest entry), autograd of
-``cholesky_ex`` and ``solve_triangular`` on the card.
+``cholesky_ex`` and ``solve_triangular`` on the card. B9 must take
+its plain version's decisions, except a bit the plain version puts
+within 1e-4 of its threshold (after which, as the walkers interact, no
+later generation is compared), with x and logp within rtol 1e-5 / atol
+1e-6 (B4's bound); ``EnsembleSampler(fused=True)`` must launch it once a
+chunk and take the per-generation engine's decisions by the same rule.
 The unmarked tests run everywhere: a tensor on a device with no kernel
 raises rather than taking the plain version.
 """
@@ -49,6 +54,8 @@ from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk, fused_chunk_plain,
                                               kernel_rng_draws)
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
+from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
+                                                fused_stretch_plain)
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
                                                cholesky_solve_batched,
                                                cholesky_solve_plain)
@@ -57,9 +64,12 @@ from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
 from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
                                                tri_solve_plain, tri_solve_t,
                                                tri_solve_t_plain)
-from bipymc_tpu_torch.samplers import dream, rw
+from bipymc_tpu_torch.samplers import dream, rw, stretch
 from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
-from bipymc_tpu_torch.testing import match_decisions, plain_log_alpha
+from bipymc_tpu_torch.samplers.stretch_fused import chunk_words
+from bipymc_tpu_torch.testing import (match_decisions,
+                                      match_stretch_decisions,
+                                      plain_log_alpha, stretch_log_alpha)
 
 torch.set_num_threads(2)
 
@@ -885,3 +895,108 @@ def test_dram_over_gp_on_card_launches_b5_b6_twice_a_step(cuda):
     assert cholesky_solve_batched.launches - b6 == 61
     assert np.all(np.isfinite(s.get_chain()))
     assert bool(torch.all(torch.isfinite(s.final_state.logp)))
+
+
+def _stretch_target(kind, d):
+    rng = np.random.default_rng(d)
+    if kind == "gaussian":
+        a = rng.standard_normal((d, d))
+        return bt.correlated_gaussian(rng.standard_normal(d),
+                                      a @ a.T / d + np.eye(d))
+    return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
+
+
+def _b9_hold(lp, x0, j, z, log_u):
+    """B9 against its plain version on one operand set; returns the
+    kernel's outputs."""
+    lp0 = lp(x0)
+    before = fused_stretch.launches
+    out = fused_stretch(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2)
+    torch.cuda.synchronize()
+    assert fused_stretch.launches == before + 1
+    ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2)
+    ref_la = stretch_log_alpha(x0, lp0, j, z, log_u, lp)
+    kept, _ = match_stretch_decisions(out[2], ref[2], (log_u - ref_la).abs())
+    assert bool(kept[0].all())
+    torch.testing.assert_close(out[0][kept], ref[0][kept], rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(out[1][kept], ref[1][kept], rtol=1e-5,
+                               atol=1e-6)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d,kind", [(64, 256, 16, "gaussian"),
+                                        (5, 18, 3, "mixture"),
+                                        (6, 16, 4, "nonfinite")])
+def test_b9_kernel_matches_plain(cuda, G, n, d, kind):
+    lp = _stretch_target("mixture" if kind == "mixture" else "gaussian", d)
+    g = torch.Generator(device=cuda).manual_seed(G + n + d)
+    words = torch.randint(-2 ** 31, 2 ** 31, (G, n, 3), generator=g,
+                          device=cuda, dtype=torch.int32)
+    j, z, log_u = stretch.convert_words(words, 2.0)
+    if kind == "nonfinite":
+        z[1, 0] = z[3, n - 1] = torch.inf
+    x0 = 2.0 * torch.randn((n, d), generator=g, device=cuda)
+    out = _b9_hold(lp, x0, j, z, log_u)
+    if kind == "nonfinite":
+        assert not bool(out[2][1, 0]) and not bool(out[2][3, n - 1])
+    assert 0 < float(out[2].float().mean()) < 1
+
+
+@pytest.mark.cuda
+def test_b9_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    lp = _stretch_target("gaussian", 3)
+    x0 = torch.randn((8, 3), device=cuda)
+    j = torch.full((2, 8), 4, dtype=torch.int32, device=cuda)
+    j[:, 4:] = 0
+    z, log_u = torch.ones((2, 8), device=cuda), torch.zeros((2, 8),
+                                                             device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fused_stretch(x0.double(), lp(x0).double(), j, z.double(),
+                      log_u.double(), lp, 4)
+    with pytest.raises(ValueError, match="kernel form"):
+        fused_stretch(x0, lp(x0), j, z, log_u,
+                      lambda x: -0.5 * (x * x).sum(-1), 4)
+    with pytest.raises(ValueError, match="int32"):
+        fused_stretch(x0, lp(x0), j.long(), z, log_u, lp, 4)
+    # d = 240: the Gaussian's 57,840 constants alone fill shared memory,
+    # which the entry point refuses before launching
+    big = _stretch_target("gaussian", 240)
+    xb = torch.randn((8, 240), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_stretch(xb, big(xb), j, z, log_u, big, 4)
+
+
+@pytest.mark.cuda
+def test_ensemble_fused_on_card_matches_per_generation_engine(cuda):
+    """``EnsembleSampler(fused=True)`` against ``fused=False`` on the card,
+    the same seed and start, 300 generations (four chunks of 64 and one of
+    44): B9 once a chunk, and the same decisions, except a bit the
+    per-generation engine puts within 1e-4 of its threshold (no later
+    generation is then compared); positions equal before it."""
+    n, d, gens = 64, 16, 300
+    lp = _stretch_target("gaussian", d)
+    x0 = np.random.default_rng(1).standard_normal((n, d)).astype(np.float32)
+    ref = bt.EnsembleSampler(lp, n_chains=n, seed=2, device=cuda)
+    fus = bt.EnsembleSampler(lp, n_chains=n, seed=2, fused=True,
+                             device=cuda)
+    ref.run_mcmc(gens, x0)
+    before = fused_stretch.launches
+    fus.run_mcmc(gens, x0)
+    assert fused_stretch.launches - before == 5
+    xt = torch.from_numpy(x0).to(cuda)
+    ops = chunk_words(ref._words, 0, gens, n, d, 2.0, torch.float32, cuda)
+    margin = (ops[2] - stretch_log_alpha(xt, lp(xt), *ops, lp)).abs()
+    kept, _ = match_stretch_decisions(
+        torch.from_numpy(fus._history["accepted"]),
+        torch.from_numpy(ref._history["accepted"]), margin.cpu())
+    g0 = int(kept[:, 0].sum())
+    np.testing.assert_array_equal(fus._history["x"][:g0],
+                                  ref._history["x"][:g0])
+    assert np.all(np.isfinite(fus._history["x"]))
+    info_r = ref.reset().run_mcmc_until(x0, rhat_tol=1.2, chunk=50)
+    before = fused_stretch.launches
+    info_f = fus.reset().run_mcmc_until(x0, rhat_tol=1.2, chunk=50)
+    assert int(info_f["steps"]) == int(info_r["steps"])
+    assert fused_stretch.launches - before == int(info_f["steps"]) // 50
