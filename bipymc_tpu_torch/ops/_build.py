@@ -59,6 +59,8 @@ SIGNATURES = {
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "trisolve": ("trisolve_launch", [_P, _P, _P, _I, _I, _I, _L, _I, _P]),
+    "gather_rows": ("gather_rows_launch",
+                    [_P, _L, _L, _I, _I, _P, _I, _L, _P, _P]),
 }
 
 

@@ -31,7 +31,9 @@ from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
 from bipymc_tpu_torch.ops.fused_stretch import check_walkers
 from bipymc_tpu_torch.parallel.pool import ChainPool
 from bipymc_tpu_torch.samplers import dream, rw, stretch
-from bipymc_tpu_torch.samplers.dream_fused import (check_fusable,
+from bipymc_tpu_torch.samplers.dream_fused import (GATHER_MODES,
+                                                   check_fusable,
+                                                   check_gather_mode,
                                                    make_chunk_runner)
 from bipymc_tpu_torch.samplers.rw_fused import (check_rw_fusable,
                                                 make_rw_chunk_runner)
@@ -306,8 +308,14 @@ class DreamZs(McmcSampler):
     package refuses the mode off the TPU). With ``fused=False`` it is
     ignored, as in the JAX package.
 
+    ``fused_gather="kernel"`` gathers each fused chunk's archive rows
+    with kernel B11 (``ops/gather_rows.py``) instead of torch indexing;
+    ``gather_kernel=True``, a ``DreamConfig`` field, does the same in the
+    per-generation engine. The rows, and so the run, are the same. Both
+    are off by default, as in the JAX package.
+
     Not ported, raising ``NotImplementedError``: ``mesh=``,
-    ``fused_z_update > 1``, ``fused_gather`` other than ``"block"`` and
+    ``fused_z_update > 1``, ``fused_gather="pergen"`` and
     ``log_prob_block``.
     """
 
@@ -318,17 +326,27 @@ class DreamZs(McmcSampler):
                  **config_kw):
         if mesh is not None:
             raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
+        # the JAX package's order (bipymc_tpu/samplers/api.py:1224-1240)
+        if fused_gather not in GATHER_MODES:
+            raise ValueError(
+                f"fused_gather={fused_gather!r}: expected one of "
+                f"{GATHER_MODES}")
+        if fused_gather != "block" and not fused:
+            raise ValueError(
+                "fused_gather is a fused-engine execution knob; pass "
+                "fused=True (the per-generation engine's equivalent is "
+                "the DreamConfig field gather_kernel=True)")
         if fused_rng not in ("stream", "kernel"):
             raise ValueError(
                 f"fused_rng={fused_rng!r}: expected 'stream' or 'kernel'")
+        check_gather_mode(fused_gather)
         unported = [name for name, v, default in (
             ("fused_z_update", fused_z_update, 1),
-            ("fused_gather", fused_gather, "block"),
             ("log_prob_block", log_prob_block, None)) if v != default]
         if unported:
             raise NotImplementedError(
                 f"{unported}: not ported (the fused engine runs one archive "
-                "update a chunk, torch's gather and the built-in targets): "
+                "update a chunk and the built-in targets): "
                 f"{_FUSED_ITEM}")
         super().__init__(log_like_fn, seed=seed, dtype=dtype, device=device)
         self.n_chains = int(n_chains)
@@ -338,6 +356,7 @@ class DreamZs(McmcSampler):
         self.n_archive_init = n_archive_init
         self.fused = bool(fused)
         self.fused_rng = fused_rng
+        self.fused_gather = fused_gather
         self._words = None
         if self.fused:
             check_fusable(self.cfg)
@@ -419,7 +438,8 @@ class DreamZs(McmcSampler):
             t = self._steps_run
             if kind == "fused":
                 final_state, history = make_chunk_runner(
-                    self.log_like_fn, self.cfg, rng=self.fused_rng)(
+                    self.log_like_fn, self.cfg, rng=self.fused_rng,
+                    gather_mode=self.fused_gather)(
                         state, self._words, n_seg, t)
             else:
                 final_state, history = self._pool_obj.run(
@@ -448,9 +468,9 @@ class DreamZs(McmcSampler):
             if chunk % G:
                 chunk += G - chunk % G
             if self._steps_run % G == 0:
-                chunk_runner = make_chunk_runner(self.log_like_fn, self.cfg,
-                                                 collect="rhat",
-                                                 rng=self.fused_rng)
+                chunk_runner = make_chunk_runner(
+                    self.log_like_fn, self.cfg, collect="rhat",
+                    rng=self.fused_rng, gather_mode=self.fused_gather)
                 fused_after = self.cfg.burnin_gens
         # the auto ring is capped at 32 population snapshots, as in the
         # JAX package: chunk·max_chunks is a worst case a run rarely nears

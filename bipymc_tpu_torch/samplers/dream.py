@@ -15,8 +15,9 @@ so both packages run the same generation.
 The generation counter is a host int, so the schedule (jump, burn-in,
 outlier check, archive append) is decided on the host and no generation
 reads a device scalar. The two kernels of the step, B3 (row indices)
-and B2 (proposal), go through their dispatchers: on the card they
-launch the CUDA kernels, on the CPU they run the plain versions. The
+and B2 (proposal), and B11 (the archive rows, with ``gather_kernel=True``)
+go through their dispatchers: on the card they launch the CUDA kernels,
+on the CPU they run the plain versions. The
 fused engine (``samplers/dream_fused.py``) runs the same generation,
 ``archive_thin`` at a time after burn-in.
 """
@@ -31,6 +32,7 @@ from bipymc_tpu_torch.ensemble.archive import (
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose
 from bipymc_tpu_torch.ops.fused_chunk import metropolis_select
+from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _OFF_DEFAULT_KERNELS = "ROADMAP Queue B"
@@ -62,7 +64,9 @@ class DreamConfig(NamedTuple):
     pallas_accept: bool = False  # kernel B10 — not ported yet
     jump_full_cr: bool = False   # CR=1 on γ=1 jump generations
     shard_archive: bool = False  # mesh-only — not ported yet
-    gather_kernel: bool = False  # kernel B11 — not ported yet
+    gather_kernel: bool = False  # the archive rows through kernel B11
+                                 # (ops/gather_rows.py) instead of
+                                 # torch indexing; the same rows
 
 
 def demcz_config(n_chains: int, **kw) -> DreamConfig:
@@ -84,7 +88,8 @@ def dream_config(n_chains: int, **kw) -> DreamConfig:
 
 def check_config(cfg: DreamConfig, device=None) -> None:
     """Raise ``NotImplementedError`` for the fields the port lacks, and
-    ``ValueError`` for ``pallas_proposal=False`` on a CUDA ``device``."""
+    ``ValueError`` for ``pallas_proposal=False`` on a CUDA ``device`` and
+    for ``gather_kernel=True`` without an archive."""
     if (cfg.pallas_proposal is False and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -97,10 +102,13 @@ def check_config(cfg: DreamConfig, device=None) -> None:
         raise NotImplementedError(
             "pallas_accept=True needs kernel B10 (accept_select), not "
             f"ported yet: {_OFF_DEFAULT_KERNELS} item 10")
-    if cfg.gather_kernel:
-        raise NotImplementedError(
-            "gather_kernel=True needs kernel B11 (gather_rows), not "
-            f"ported yet: {_OFF_DEFAULT_KERNELS} item 11")
+    if cfg.gather_kernel and not cfg.use_archive:
+        # bipymc_tpu/samplers/dream.py:181-186
+        raise ValueError(
+            "gather_kernel=True routes the ARCHIVE row gather through "
+            "the DMA kernel; this configuration samples the live "
+            "population (use_archive=False), which has no capacity "
+            "pathology to fix — drop gather_kernel")
 
 
 class DreamState(NamedTuple):
@@ -195,7 +203,10 @@ def make_step(log_prob: Callable, cfg: DreamConfig) -> Callable:
 
         if cfg.use_archive:
             row_idx = distinct_idx(row_bits, k_rows, state.archive.fill)
-            rows = state.archive.buf[row_idx]               # [n, k, d]
+            if cfg.gather_kernel:
+                rows = gather_rows(state.archive.buf, row_idx)
+            else:
+                rows = state.archive.buf[row_idx]           # [n, k, d]
         else:
             # population-DREAM: rows from the generation-start population,
             # all distinct and ≠ the chain itself

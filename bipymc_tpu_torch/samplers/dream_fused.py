@@ -28,11 +28,17 @@ the chain), so a generation's word block shrinks from 5 + k + 3d words a
 chain to 5 + k, and the chunk's decisions are no longer the
 per-generation engine's: the same distributions, other draws.
 
+The archive rows of a chunk are one gather of its [G·n, k] indices:
+torch indexing (``gather_mode="block"``, the default) or kernel B11
+(``gather_mode="kernel"``, ``ops/gather_rows.py``); the rows are the
+same. The JAX package's ``"pergen"`` mode, G per-generation gathers
+under ``lax.map`` (``bipymc_tpu/samplers/dream_fused.py:98-99``), is a
+TPU lowering with no kernel of its own; it raises, and waits with B10
+(ROADMAP Queue A item 18b). Its module global ``_GATHER_MODE``
+(``:85``) is left behind (ROADMAP A16): the mode is an argument.
+
 Not ported (``samplers/api.py`` raises for each, naming its ROADMAP
-item): the mesh, ``z_update_every > 1``, the gather modes and
-``log_prob_block``. ``_GATHER_MODE``
-(``bipymc_tpu/samplers/dream_fused.py:85-103``) chose among TPU
-lowerings of one gather; here the gather is torch indexing.
+item): the mesh, ``z_update_every > 1`` and ``log_prob_block``.
 """
 
 from typing import Callable
@@ -43,11 +49,26 @@ from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
 from bipymc_tpu_torch.ensemble.archive import archive_append
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.fused_chunk import run_fused_chunk
+from bipymc_tpu_torch.ops.gather_rows import gather_rows
 from bipymc_tpu_torch.samplers.dream import (DreamConfig, DreamState,
                                              n_rows, n_words)
 from bipymc_tpu_torch.utils.streaming import rhat_init, rhat_update_block
 
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
+_PERGEN_ITEM = "ROADMAP Queue A item 18b (with B10)"
+GATHER_MODES = ("block", "pergen", "kernel")
+
+
+def check_gather_mode(gather_mode: str) -> None:
+    """``ValueError`` for an unknown mode, ``NotImplementedError`` for
+    ``"pergen"``."""
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode={gather_mode!r}: expected one of "
+                         f"{GATHER_MODES}")
+    if gather_mode == "pergen":
+        raise NotImplementedError(
+            "gather_mode='pergen' (per-generation gathers, a TPU lowering "
+            f"with no kernel) is not ported: {_PERGEN_ITEM}")
 
 
 def validate_fused_segment(cfg: DreamConfig, t0: int):
@@ -75,12 +96,21 @@ def check_fusable(cfg: DreamConfig, mesh=None):
         raise NotImplementedError(f"mesh= is not ported: {_MESH_ITEM}")
 
 
+def chunk_row_idx(state: DreamState, blk, cfg: DreamConfig):
+    """The chunk's archive row indices, int32 [G·n, k], drawn by B3 from
+    the word block ``blk`` [G, n, ≥ 5 + k]: every generation of the chunk
+    samples the chunk-start archive."""
+    k = n_rows(cfg)
+    return distinct_idx(blk.view(-1, blk.shape[-1])[:, 5:5 + k], k,
+                        state.archive.fill)
+
+
 def _rows_and_scal(state: DreamState, blk, u_all, t0: int,
-                   cfg: DreamConfig):
+                   cfg: DreamConfig, gather_mode: str = "block"):
     """The archive rows [G, n, k, d] and packed scalars [G, n, 6] of
     generations t0 … t0 + G − 1 from their word block ``blk`` [G, n, ≥ 5
     + k] and its uniforms ``u_all``, built as ``samplers/dream.py``'s
-    step builds one generation's."""
+    step builds one generation's; the rows through ``gather_mode``."""
     x = state.x
     n, d = x.shape
     dtype, device = x.dtype, x.device
@@ -89,10 +119,11 @@ def _rows_and_scal(state: DreamState, blk, u_all, t0: int,
     n_pairs = cfg.delta_max
     u_scal = u_all[..., 0:3]
     u_cr = u_all[..., 3]
-    # every generation of the chunk samples the chunk-start archive
-    row_idx = distinct_idx(blk.view(G * n, -1)[:, 5:5 + k], k,
-                           state.archive.fill)
-    rows = state.archive.buf[row_idx].view(G, n, k, d)
+    row_idx = chunk_row_idx(state, blk, cfg)
+    if gather_mode == "kernel":
+        rows = gather_rows(state.archive.buf, row_idx).view(G, n, k, d)
+    else:
+        rows = state.archive.buf[row_idx].view(G, n, k, d)
     # the scalars as the step packs them, with the frozen CR table
     cr_idx = torch.clamp_max(
         torch.sum(u_cr[..., None] >= state.cr_cum, dim=-1), cfg.n_cr - 1)
@@ -112,7 +143,8 @@ def _rows_and_scal(state: DreamState, blk, u_all, t0: int,
     return rows, scal
 
 
-def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
+def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig,
+                   gather_mode: str = "block"):
     """Kernel B1's stream-mode operands for generations t0 … t0 + G − 1
     from the chunk-start state: ``(rows [G, n, k, d], u_mask, u_e, eps
     [G, n, d], scal [G, n, 6])``, built as ``samplers/dream.py``'s step
@@ -123,13 +155,14 @@ def chunk_operands(state: DreamState, words, t0: int, cfg: DreamConfig):
     blk = words.block(t0, cfg.archive_thin, n, n_words(cfg, d),
                       state.x.device)                     # [G, n, words]
     u_all = bits_to_uniform(blk, state.x.dtype)
-    rows, scal = _rows_and_scal(state, blk, u_all, t0, cfg)
+    rows, scal = _rows_and_scal(state, blk, u_all, t0, cfg, gather_mode)
     return (rows, u_all[..., off:off + d], u_all[..., off + d:off + 2 * d],
             uniform_to_normal(u_all[..., off + 2 * d:]), scal)
 
 
 def chunk_operands_kernel_rng(state: DreamState, words, t0: int,
-                              cfg: DreamConfig, test_stream_bits=False):
+                              cfg: DreamConfig, test_stream_bits=False,
+                              gather_mode: str = "block"):
     """Kernel B1's kernel-RNG-mode operands: ``(rows, scal, test_bits)``
     from a ``[G, n, 5 + k]`` word block; B1 draws u_mask, u_e and eps
     itself, so ``test_bits`` is None. With ``test_stream_bits`` the block
@@ -142,7 +175,7 @@ def chunk_operands_kernel_rng(state: DreamState, words, t0: int,
                       state.x.device)
     rows, scal = _rows_and_scal(state, blk,
                                 bits_to_uniform(blk[..., :5], state.x.dtype),
-                                t0, cfg)
+                                t0, cfg, gather_mode)
     test_bits = None
     if test_stream_bits:
         off = 5 + n_rows(cfg)
@@ -153,6 +186,7 @@ def chunk_operands_kernel_rng(state: DreamState, words, t0: int,
 
 def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
                       collect: str = "all", rng: str = "stream",
+                      gather_mode: str = "block",
                       _test_stream_bits: bool = False) -> Callable:
     """Build ``run(state, words, n_gens, t0) -> (state, history)``.
 
@@ -172,12 +206,17 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
     only the 5 + k scalar and row words. ``_test_stream_bits`` (tests
     only) hands B1 stream mode's words instead, so kernel-RNG mode takes
     stream mode's decisions.
+
+    ``gather_mode="kernel"``: the chunk's archive rows come from kernel
+    B11 instead of torch indexing, in either RNG mode; the same rows, so
+    the same run.
     """
     if collect not in ("all", "stats", "rhat"):
         raise ValueError(
             f"collect={collect!r}: expected 'all', 'stats' or 'rhat'")
     if rng not in ("stream", "kernel"):
         raise ValueError(f"rng={rng!r}: expected 'stream' or 'kernel'")
+    check_gather_mode(gather_mode)
     check_fusable(cfg)
     G = cfg.archive_thin
     kw = dict(n_pairs=cfg.delta_max, b=cfg.b, b_star=cfg.b_star)
@@ -194,14 +233,14 @@ def make_chunk_runner(log_prob: Callable, cfg: DreamConfig,
         for c0 in range(t0, t0 + n_gens, G):
             if rng == "kernel":
                 rows, scal, tb = chunk_operands_kernel_rng(
-                    st, words, c0, cfg, _test_stream_bits)
+                    st, words, c0, cfg, _test_stream_bits, gather_mode)
                 xh, lph, acc = run_fused_chunk(
                     st.x, st.logp, rows, None, None, None, scal, log_prob,
                     d_true=d, rng="kernel", run_key=words.key, t0=c0,
                     test_bits=tb, **kw)
             else:
-                rows, u_mask, u_e, eps, scal = chunk_operands(st, words, c0,
-                                                              cfg)
+                rows, u_mask, u_e, eps, scal = chunk_operands(
+                    st, words, c0, cfg, gather_mode)
                 xh, lph, acc = run_fused_chunk(
                     st.x, st.logp, rows, u_mask, u_e, eps, scal, log_prob,
                     d_true=d, **kw)

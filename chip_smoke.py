@@ -79,6 +79,15 @@ non-zero:
    stream-mode B1 on that chunk (the same rule). Timed at config 3's
    shape, stream and kernel-RNG mode in turns (stream, kernel, kernel,
    stream); its own record in the kernels line.
+2g. B11 (``gather_rows``) against its plain version on the card, every
+   case bit-equal (``torch.equal``): the fused chunk's [10, 256, 6]
+   indices, drawn by B3 from the config-3 run's words after burn-in, into
+   its [8192, 100] float32 archive; the per-generation [256, 6]; duplicate
+   rows; indices below 0 and at or above the capacity (clamped, not
+   wrapped); int64 indices; d in {1, 3, 129}; float64 and bfloat16
+   buffers; a buffer with a row stride of 101; and an empty index set,
+   which must launch nothing. Timed at the fused chunk's shape beside
+   ``torch.index_select`` (the library call) and torch indexing.
 2f. B9 (``fused_stretch``) against its plain version on the card: at the
    stretch path's own shape, [G, n, d] = [64, 256, 16] on its target
    with its start and its first chunk's words, and at (G, n, d) in {(64,
@@ -109,7 +118,16 @@ non-zero:
    kernel-RNG mode once a chunk and never in stream mode, with the same
    checks, profile and R̂ stop. Then 3b's and 3c's gens/s, ESS/s,
    acceptance and occupancy on one line, and a chunk's wall and busy
-   time of both samplers in turns (stream, kernel, kernel, stream).
+   time of both samplers in turns (stream, kernel, kernel, stream). B11
+   must have launched no time in phases 3, 3b and 3c: the defaults do
+   not route through it.
+3d. Phase 3c again with ``fused_gather="kernel"`` and
+   ``gather_kernel=True``, the archive rows through B11 in burn-in and in
+   every chunk: B11 and B3 must each have launched 500 + 700 = 1,200
+   times, the ``accepted`` and ``x`` histories must be bit-equal to phase
+   3c's, and the R̂ stop must take phase 3c's generations with its R̂.
+   Then 20 chunks timed alone and under the profiler, B11's µs a chunk
+   beside phase 3c's torch gather.
 4. The R̂ stop: 256 chains in one basin, ``run_mcmc_until`` to R̂ < 1.1,
    one warm call, ``reset()``, one timed call. Both kernels must have
    launched once per generation of the two calls.
@@ -165,7 +183,8 @@ non-zero:
    both engines (warm call, ``reset()``, timed call), which must stop at
    the same generation, B9 launching twice a 100-generation chunk on the
    fused engine and never on the other.
-10. One JSON line of the kernels, the card's line, and the result line.
+10. One JSON line of the kernels (ten ported, eleven records: B1 has one
+   a mode), the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -837,16 +856,120 @@ def check_b9(dev):
             readings[cases[0][0]]["max_abs_dlogp"]), times, n_bytes, n_ops)
 
 
+# ---------------------------------------------------------------- phase 2g
+def check_b11(dev):
+    from bipymc_tpu_torch.ops.gather_rows import (gather_rows,
+                                                  gather_rows_reference)
+    from bipymc_tpu_torch.samplers.dream import n_words
+    from bipymc_tpu_torch.samplers.dream_fused import chunk_row_idx
+
+    # the fused chunk's own indices: B3 on the config-3 run's words of its
+    # first chunk, into its archive after burn-in
+    _, _, s = config3_burned_in(dev)
+    st = s.final_state
+    blk = s._words.block(BURNIN, 10, N_CHAINS, n_words(s.cfg, D), dev)
+    chunk_idx = chunk_row_idx(st, blk, s.cfg)               # [2560, 6]
+    buf = st.archive.buf                                     # [8192, 100]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand_buf(cap, d, dtype=torch.float32, ld=None):
+        return torch.randn((cap, ld or d), generator=g, device=dev
+                           ).to(dtype)[:, :d]
+
+    def rand_idx(shape, lo, hi, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    cases = {
+        "fused chunk [10, 256, 6] (B3)": (buf, chunk_idx.view(10, N_CHAINS,
+                                                               6)),
+        "per generation [256, 6] (B3)": (buf, chunk_idx[:N_CHAINS]),
+        "duplicate rows": (rand_buf(64, D), rand_idx((300,), 0, 4)),
+        "below 0 and at or above cap": (rand_buf(64, D),
+                                        rand_idx((2000,), -100, 200)),
+        "int64": (buf, rand_idx((N_CHAINS, 6), -5, CAPACITY + 8,
+                                torch.int64)),
+        "d=1": (rand_buf(50, 1), rand_idx((10, 16, 7), -2, 52)),
+        "d=3": (rand_buf(50, 3), rand_idx((37,), 0, 50)),
+        "d=129": (rand_buf(50, 129), rand_idx((4, 9), 0, 50)),
+        "float64": (rand_buf(512, D, torch.float64),
+                    rand_idx((10, 16, 7), -1, 513)),
+        "bfloat16": (rand_buf(512, D, torch.bfloat16),
+                     rand_idx((37,), 0, 512, torch.int64)),
+        "bfloat16 d=3": (rand_buf(512, 3, torch.bfloat16),
+                         rand_idx((37,), 0, 512)),
+        "row stride 101": (rand_buf(512, D, ld=101),
+                           rand_idx((N_CHAINS, 6), 0, 512)),
+        "empty": (buf, rand_idx((0,), 0, 1)),
+    }
+    for label, (b, idx) in cases.items():
+        before = gather_rows.launches
+        out = gather_rows(b, idx)
+        ref = gather_rows_reference(b, idx)
+        torch.cuda.synchronize()
+        if gather_rows.launches != before + (idx.numel() > 0):
+            raise AssertionError(f"B11 ({label}): launched "
+                                 f"{gather_rows.launches - before} times")
+        if out.shape != (*idx.shape, b.shape[1]) or not torch.equal(out,
+                                                                    ref):
+            raise AssertionError(f"B11 differs from its plain version "
+                                 f"({label})")
+    b, idx = cases["below 0 and at or above cap"]
+    if not (bool((idx < 0).any()) and bool((idx >= b.shape[0]).any())):
+        raise AssertionError("B11: the clamp case has no index out of range")
+    log(f"B11 gather_rows: bit-equal to the plain version in {len(cases)} "
+        f"cases ({', '.join(cases)})")
+
+    kernel = lambda: gather_rows(buf, chunk_idx)
+    plain = lambda: gather_rows_reference(buf, chunk_idx)
+    flat = chunk_idx.view(-1)            # in range: index_select needs no
+    library = lambda: torch.index_select(buf, 0, flat)           # clamp
+    times = (device_ms(kernel), device_ms(plain), call_ms(kernel),
+             call_ms(plain))
+    # bytes: each distinct row the chunk reads once, each gathered row
+    # written once, the indices; operations: a clamp an index
+    n_rows = chunk_idx.numel()
+    n_distinct = int(torch.unique(chunk_idx).numel())
+    n_bytes = (n_distinct + n_rows) * D * 4 + n_rows * 4
+    record = kernel_record(
+        "gather_rows", "bipymc_tpu_torch/csrc/gather_rows.cu",
+        "bipymc_tpu/ops/gather_rows.py:55", 0.0, times, n_bytes, n_rows,
+        library_ms=device_ms(library))
+    record["torch_index_ms"] = device_ms(lambda: buf[chunk_idx])
+    # the archive (3.3 MB) stays in the 50 MB L2 across repeated calls:
+    # B11 alone with L2 overwritten (128 MB of zeros) before each call
+    scratch = torch.empty(32 * 2 ** 20, device=dev)
+
+    def cold():
+        scratch.zero_()
+        gather_rows(buf, chunk_idx)
+
+    for _ in range(5):
+        cold()
+    rows = device_times(cold, 50)
+    record["ms_cold_l2"] = sum(us for k, (us, _) in rows.items()
+                               if "gather_rows" in k) / 50 / 1e3
+    log("B11 at the fused chunk's shape:", json.dumps(
+        {"distinct_rows": n_distinct, "rows": n_rows,
+         "ms_cold_l2": record["ms_cold_l2"],
+         "library_ms (index_select)": record["library_ms"],
+         "torch_index_ms (buf[idx], the default route)":
+             record["torch_index_ms"]}))
+    return record
+
+
 # ---------------------------------------------------------------- phase 3
 def main_path(dev):
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
     log_prob, means, theta0 = config3_setup(dev)
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
                    burnin_gens=BURNIN, archive_capacity=CAPACITY, device=dev)
     distinct_idx.launches = dream_propose.launches = 0
+    gather_rows.launches = 0
     t0 = time.perf_counter()
     s.run_mcmc(WARM_GENS, theta0)
     warm_s = time.perf_counter() - t0
@@ -860,6 +983,9 @@ def main_path(dev):
         if count != n_gens:
             raise AssertionError(f"{name} launched {count} times in "
                                  f"{n_gens} generations")
+    if gather_rows.launches:
+        raise AssertionError(f"B11 launched {gather_rows.launches} times "
+                             "on the default route")
 
     chains = s.get_chain(discard=WARM_GENS)          # [256, 5000, 100]
     if chains.shape != (N_CHAINS, TIMED_GENS, D) or \
@@ -885,7 +1011,8 @@ def main_path(dev):
 def busy_share(s, n_units=200, per_unit=1, unit="gen"):
     """The device's busy share of a unit of work, and its time by kernel:
     ``n_units`` units of ``per_unit`` steps timed alone, then as many
-    under the profiler (which slows the host, not the kernels)."""
+    under the profiler (which slows the host, not the kernels). Returns
+    the wall µs a unit and the profile, {kernel: (µs, calls)}."""
     n_steps = n_units * per_unit
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -902,25 +1029,37 @@ def busy_share(s, n_units=200, per_unit=1, unit="gen"):
                                    key=lambda r: -r[1][0])[:15]:
         log(f"  {us / n_units:8.3f} us/{unit} {count / n_units:6.1f}/{unit}"
             f"  {key[:100]}")
-    return wall_us
+    return wall_us, rows
 
 
 # ---------------------------------------------------------- phases 3b, 3c
-def fused_path(dev, rng="stream"):
+def torch_gather_us(rows, n_units):
+    """The µs a unit of torch's own gather kernels in a ``busy_share``
+    profile, and their names."""
+    keys = [k for k in rows if any(name in k for name in (
+        "gather_kernel", "index_elementwise", "indexSelect"))
+        and "gather_rows" not in k]
+    return sum(rows[k][0] for k in keys) / n_units, [k[:80] for k in keys]
+
+
+def fused_path(dev, rng="stream", gather=False):
     """Config 3 on the fused engine, as ``bench.py`` times it, with B1 in
-    stream mode (3b) or kernel-RNG mode (3c). Returns the launch counts,
-    the result line and the sampler."""
+    stream mode (3b) or kernel-RNG mode (3c), and with ``gather`` the
+    archive rows through B11 (3d). Returns the launch counts, the result
+    line and the sampler."""
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
     from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
+    from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
     log_prob, means, theta0 = config3_setup(dev)
+    flags = dict(fused_gather="kernel", gather_kernel=True) if gather else {}
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
                    burnin_gens=BURNIN, archive_capacity=CAPACITY, fused=True,
-                   fused_rng=rng, device=dev)
+                   fused_rng=rng, device=dev, **flags)
     distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
-    fused_chunk.kernel_rng_launches = 0
+    fused_chunk.kernel_rng_launches = gather_rows.launches = 0
     t0 = time.perf_counter()
     s.run_mcmc(WARM_GENS, theta0)
     warm_s = time.perf_counter() - t0
@@ -930,16 +1069,19 @@ def fused_path(dev, rng="stream"):
     launches = {"fused_chunk": fused_chunk.launches,
                 "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches,
                 "dream_propose": dream_propose.launches,
-                "distinct_idx": distinct_idx.launches}
+                "distinct_idx": distinct_idx.launches,
+                "gather_rows": gather_rows.launches}
     n_chunks = (WARM_GENS + TIMED_GENS - BURNIN) // 10
     # fused_chunk counts B1's launches in either mode; no stream-mode
-    # launch may occur in kernel-RNG mode, nor the reverse
+    # launch may occur in kernel-RNG mode, nor the reverse; B11 once a
+    # burn-in generation and once a chunk with ``gather``, else never
     want = {"fused_chunk": n_chunks,
             "fused_chunk_kernel_rng": n_chunks if rng == "kernel" else 0,
-            "dream_propose": BURNIN, "distinct_idx": BURNIN + n_chunks}
+            "dream_propose": BURNIN, "distinct_idx": BURNIN + n_chunks,
+            "gather_rows": BURNIN + n_chunks if gather else 0}
     if launches != want:
-        raise AssertionError(f"fused config 3 ({rng}) launched {launches}, "
-                             f"want {want}")
+        raise AssertionError(f"fused config 3 ({rng}, gather={gather}) "
+                             f"launched {launches}, want {want}")
 
     chains = s.get_chain(discard=WARM_GENS)          # [256, 5000, 100]
     if chains.shape != (N_CHAINS, TIMED_GENS, D) or \
@@ -956,15 +1098,48 @@ def fused_path(dev, rng="stream"):
         "mode_occupancy": occ.tolist(), "warmup_s": warm_s,
         "timed_s": elapsed, "launches": launches}
     log("fused main path:" if rng == "stream" else
-        "fused main path, kernel RNG:", json.dumps(result))
+        "fused main path, kernel RNG:" if not gather else
+        "fused main path, kernel RNG, B11 gathers:", json.dumps(result))
     if occ.min() == 0:
         raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
     if not bool(torch.all(torch.isfinite(s.final_state.logp))):
         raise AssertionError(f"fused config 3 ({rng}): a final logp is not "
                              "finite")
-    busy_share(s, n_units=20, per_unit=10, unit="chunk")
-    rhat_stop(dev, fused=True, rng=rng)
+    wall_us, rows = busy_share(s, n_units=20, per_unit=10, unit="chunk")
+    result["profile"] = {
+        "wall_us_per_chunk": wall_us,
+        "busy_us_per_chunk": sum(us for us, _ in rows.values()) / 20,
+        "kernels_per_chunk": sum(c for _, c in rows.values()) / 20,
+        "b11_us_per_chunk": sum(us for k, (us, _) in rows.items()
+                                if "gather_rows" in k) / 20,
+        "torch_gather_us_per_chunk": torch_gather_us(rows, 20)}
+    if (result["profile"]["b11_us_per_chunk"] > 0) != gather:
+        raise AssertionError(f"fused config 3 ({rng}, gather={gather}): "
+                             "B11 in the profile is not as configured")
+    result["rhat_stop"] = rhat_stop(dev, fused=True, rng=rng, gather=gather)
     return launches, result, s
+
+
+def gather_path(dev, s_ref, ref_res):
+    """Phase 3d: phase 3c with the archive rows through B11, held to phase
+    3c's sampler ``s_ref`` and result ``ref_res``. Returns the launch
+    counts."""
+    launches, res, s = fused_path(dev, rng="kernel", gather=True)
+    n_gens = WARM_GENS + TIMED_GENS
+    h, h_ref = s._history, s_ref._history
+    for key in ("accepted", "x"):
+        if not np.array_equal(h[key][:n_gens], h_ref[key][:n_gens]):
+            raise AssertionError(f"phase 3d: the {key} history differs from "
+                                 "phase 3c's")
+    if res["rhat_stop"] != ref_res["rhat_stop"]:
+        raise AssertionError(f"phase 3d: R-hat stop {res['rhat_stop']}, "
+                             f"phase 3c {ref_res['rhat_stop']}")
+    log("config 3 fused kernel RNG, torch gather (3c) vs B11 (3d):",
+        json.dumps({"bit_equal_gens": n_gens,
+                    "rhat_stop (gens, max R-hat)": res["rhat_stop"],
+                    **{k: [ref_res[k], res[k]] for k in (
+                        "gens_per_sec", "ess_per_sec", "profile")}}))
+    return launches
 
 
 def fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel):
@@ -974,20 +1149,23 @@ def fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel):
     keys = ("gens_per_sec", "ess_per_sec", "acceptance", "mode_occupancy")
     log("config 3 fused, stream vs kernel RNG:", json.dumps(
         {k: [stream_res[k], kernel_res[k]] for k in keys}))
-    walls = [busy_share(s, n_units=20, per_unit=10, unit="chunk")
+    walls = [busy_share(s, n_units=20, per_unit=10, unit="chunk")[0]
              for s in (s_stream, s_kernel, s_kernel, s_stream)]
     log("wall us a chunk in turns (stream, kernel RNG, kernel RNG, "
         "stream):", json.dumps(walls))
 
 
 # ---------------------------------------------------------------- phase 4
-def rhat_stop(dev, fused=False, rng="stream"):
+def rhat_stop(dev, fused=False, rng="stream", gather=False):
     """The within-basin R̂ stop; with ``fused`` the chunks after burn-in
-    run on the fused engine, B1 in mode ``rng``."""
+    run on the fused engine, B1 in mode ``rng``; with ``gather`` (fused
+    only) the archive rows come from B11. Returns the generations and
+    max R̂."""
     import bipymc_tpu_torch as bt
     from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
     from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
+    from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
     means = bt.baseline_config3_means(D)
     log_prob = bt.gaussian_mixture(means, sigma=1.0)
@@ -995,12 +1173,13 @@ def rhat_stop(dev, fused=False, rng="stream"):
     theta0 = bt.var_ball(g, torch.full((D,), 4.0), N_CHAINS,
                          center=means[2], device=dev)
     burnin = 1000
+    flags = dict(fused_gather="kernel", gather_kernel=True) if gather else {}
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED, burnin_gens=burnin,
                    archive_capacity=CAPACITY, fused=fused, fused_rng=rng,
-                   device=dev)
+                   device=dev, **flags)
     kw = dict(rhat_tol=1.1, chunk=200, max_chunks=150, warmup_chunks=6)
     distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
-    fused_chunk.kernel_rng_launches = 0
+    fused_chunk.kernel_rng_launches = gather_rows.launches = 0
     warm = s.run_mcmc_until(theta0, **kw)
     s.reset()
     t0 = time.perf_counter()
@@ -1010,7 +1189,8 @@ def rhat_stop(dev, fused=False, rng="stream"):
     launches = {"distinct_idx": distinct_idx.launches,
                 "dream_propose": dream_propose.launches,
                 "fused_chunk": fused_chunk.launches,
-                "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches}
+                "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches,
+                "gather_rows": gather_rows.launches}
     n_gens = int(warm["steps"]) + steps
     # the fused run: burn-in per generation in each call (the stop comes
     # after the 6 warm-up chunks, past burn-in), then chunks of 10
@@ -1018,12 +1198,14 @@ def rhat_stop(dev, fused=False, rng="stream"):
     n_chunks = (n_gens - pergen) // 10
     want = {"distinct_idx": pergen + n_chunks, "dream_propose": pergen,
             "fused_chunk": n_chunks,
-            "fused_chunk_kernel_rng": n_chunks if rng == "kernel" else 0}
+            "fused_chunk_kernel_rng": n_chunks if rng == "kernel" else 0,
+            "gather_rows": pergen + n_chunks if gather else 0}
     if launches != want:
         raise AssertionError(f"R-hat runs ({n_gens} generations): launched "
                              f"{launches}, want {want}")
     label = ("rhat stop:" if not fused else "fused rhat stop:"
-             if rng == "stream" else "fused kernel-RNG rhat stop:")
+             if rng == "stream" else "fused kernel-RNG rhat stop:"
+             if not gather else "fused kernel-RNG rhat stop, B11 gathers:")
     log(label, json.dumps({"wall_s": wall, "gens": steps, "rhat_max": rhat,
                            "mode_occupancy": bt.mode_occupancy(
                                s.final_state.x.cpu().numpy(),
@@ -1033,6 +1215,7 @@ def rhat_stop(dev, fused=False, rng="stream"):
         raise AssertionError(f"R-hat stop not reached: max R-hat {rhat}")
     if not bool(torch.all(torch.isfinite(s.final_state.logp))):
         raise AssertionError("R-hat run: a final logp is not finite")
+    return steps, rhat
 
 
 # ---------------------------------------------------------------- phase 2b
@@ -1176,7 +1359,7 @@ def config1_path(dev):
             and np.all(np.abs(cov - np.array(C1_COV)) < 0.3)):
         raise AssertionError(f"config 1 posterior off the truth: mean "
                              f"{mean.tolist()}, cov {cov.tolist()}")
-    wall_us = busy_share(s, n_units=10, per_unit=C1_K, unit="chunk")
+    wall_us, _ = busy_share(s, n_units=10, per_unit=C1_K, unit="chunk")
 
     # the Welford replay and refresh of one chunk, alone
     st = s.final_state
@@ -2209,7 +2392,7 @@ def main():
                check_b6(dev)]
     records[3]["config5_grad"] = check_b5_grad(dev)
     records += [check_b7(dev), check_b8(dev), check_b1(dev),
-                check_b1_kernel_rng(dev), check_b9(dev)]
+                check_b1_kernel_rng(dev), check_b9(dev), check_b11(dev)]
     launch_floor(dev)
     launches = main_path(dev)
     stream_launches, stream_res, s_stream = fused_path(dev)
@@ -2218,6 +2401,12 @@ def main():
     launches["fused_chunk_kernel_rng"] = \
         kernel_launches["fused_chunk_kernel_rng"]
     fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel)
+    from bipymc_tpu_torch.ops.gather_rows import gather_rows
+    if gather_rows.launches:          # since phase 3c's R-hat stop began
+        raise AssertionError(f"B11 launched {gather_rows.launches} times "
+                             "in phases 3, 3b and 3c (the defaults)")
+    launches["gather_rows"] = gather_path(dev, s_kernel,
+                                          kernel_res)["gather_rows"]
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)

@@ -117,9 +117,9 @@ def test_input_probes_raise():
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
-    {"fused_z_update": 2}, {"fused_gather": "kernel"},
+    {"fused_z_update": 2}, {"fused_gather": "pergen", "fused": True},
     {"log_prob_block": lambda x: x}, {"shard_archive": True},
-    {"pallas_accept": True}, {"gather_kernel": True}])
+    {"pallas_accept": True}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _sampler(**kw)

@@ -36,7 +36,11 @@ within 1e-4 of its threshold (after which, as the walkers interact, no
 later generation is compared), with x and logp within rtol 1e-5 / atol
 1e-6 (B4's bound); ``EnsembleSampler(fused=True)`` must launch it once a
 chunk and take the per-generation engine's decisions by the same rule.
-The unmarked tests run everywhere: a tensor on a device with no kernel
+B11 must be bit-equal to its plain version (a copy is a copy), in every
+element type and for indices out of range, and ``DreamZs`` with
+``fused_gather="kernel"`` and ``gather_kernel=True`` must launch it once
+a generation and once a chunk and take the default route's decisions,
+positions bit-equal. The unmarked tests run everywhere: a tensor on a device with no kernel
 raises rather than taking the plain version.
 """
 
@@ -56,6 +60,8 @@ from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
                                                 fused_stretch_plain)
+from bipymc_tpu_torch.ops.gather_rows import (gather_rows,
+                                              gather_rows_reference)
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
                                                cholesky_solve_batched,
                                                cholesky_solve_plain)
@@ -1000,3 +1006,103 @@ def test_ensemble_fused_on_card_matches_per_generation_engine(cuda):
     info_f = fus.reset().run_mcmc_until(x0, rhat_tol=1.2, chunk=50)
     assert int(info_f["steps"]) == int(info_r["steps"])
     assert fused_stretch.launches - before == int(info_f["steps"]) // 50
+
+
+# ---- kernel B11: gather_rows ------------------------------------------------
+
+def _b11_operands(cap, d, shape, dtype, idx_dtype, lo, hi, seed, ld=None):
+    """buf [cap, d] (a view of a [cap, ld] buffer where ``ld`` is given)
+    and indices of ``shape`` uniform on [lo, hi)."""
+    rng = np.random.default_rng(seed)
+    full = rng.standard_normal((cap, ld or d)).astype(np.float32)
+    buf = torch.from_numpy(full).to(dtype)[:, :d]
+    idx = torch.from_numpy(rng.integers(lo, hi, shape)).to(idx_dtype)
+    return buf, idx
+
+
+def test_b11_meta_tensors_raise_instead_of_plain():
+    buf = torch.empty((64, 100), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        gather_rows(buf, torch.zeros(6, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,d,shape,dtype,idx_dtype,lo,hi,ld", [
+    (8192, 100, (2560, 6), torch.float32, torch.int32, 0, 8192, None),
+    (8192, 100, (256, 6), torch.float32, torch.int32, 0, 8192, None),
+    (64, 100, (300,), torch.float32, torch.int32, 0, 4, None),
+    (64, 12, (40,), torch.float32, torch.int32, -100, 200, None),
+    (8192, 100, (256, 6), torch.float32, torch.int64, -5, 8200, None),
+    (50, 1, (10, 16, 7), torch.float32, torch.int32, -2, 52, None),
+    (50, 3, (37,), torch.float32, torch.int32, 0, 50, None),
+    (50, 129, (4, 9), torch.float32, torch.int32, 0, 50, None),
+    (512, 100, (10, 16, 7), torch.float64, torch.int32, -1, 513, None),
+    (512, 100, (37,), torch.bfloat16, torch.int64, 0, 512, None),
+    (512, 3, (37,), torch.bfloat16, torch.int32, 0, 512, None),
+    (512, 100, (256, 6), torch.float32, torch.int32, 0, 512, 101),
+    (512, 100, (0,), torch.float32, torch.int32, 0, 1, None)])
+def test_b11_kernel_matches_plain(cuda, cap, d, shape, dtype, idx_dtype,
+                                  lo, hi, ld):
+    buf, idx = _b11_operands(cap, d, shape, dtype, idx_dtype, lo, hi,
+                             seed=cap + d, ld=ld)
+    buf, idx = buf.to(cuda), idx.to(cuda)
+    before = gather_rows.launches
+    out = gather_rows(buf, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + (idx.numel() > 0)
+    assert out.shape == (*shape, d) and out.dtype == dtype
+    assert torch.equal(out, gather_rows_reference(buf, idx))
+
+
+@pytest.mark.cuda
+def test_b11_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    buf, idx = _b11_operands(64, 100, (256, 6), torch.float32, torch.int32,
+                             0, 64, 0)
+    buf, idx = buf.to(cuda), idx.to(cuda)
+    with pytest.raises(ValueError, match="idx on cpu"):
+        gather_rows(buf, idx.cpu())
+    with pytest.raises(ValueError, match="buf on cpu"):
+        gather_rows(buf.cpu(), idx)
+    with pytest.raises(ValueError, match="unit stride"):
+        gather_rows(buf.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(buf, idx.t())
+    with pytest.raises(TypeError):
+        gather_rows(buf, idx.to(torch.int16))
+    with pytest.raises(TypeError):
+        gather_rows(buf.to(torch.int32), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_rng", ["stream", "kernel"])
+def test_dreamzs_gather_flags_on_card_take_default_decisions(cuda,
+                                                             fused_rng):
+    """``DreamZs(fused=True, fused_gather="kernel", gather_kernel=True)``
+    on the card: B11 once a burn-in generation and once a chunk, and the
+    default route's decisions and positions, bit for bit; the R̂ stop at
+    the same generation."""
+    n, d, burnin, gens = 64, 20, 100, 60
+    means = bt.baseline_config3_means(d)
+    theta0 = bt.stratified_mode_init(
+        torch.Generator(device=cuda).manual_seed(0), means, n, device=cuda)
+    kw = dict(n_chains=n, seed=0, burnin_gens=burnin, archive_capacity=2048,
+              fused=True, fused_rng=fused_rng, device=cuda)
+    ref = bt.DreamZs(bt.gaussian_mixture(means), **kw)
+    before = gather_rows.launches
+    ref.run_mcmc(burnin + gens, theta0)
+    assert gather_rows.launches == before
+    s = bt.DreamZs(bt.gaussian_mixture(means), fused_gather="kernel",
+                   gather_kernel=True, **kw)
+    s.run_mcmc(burnin + gens, theta0)
+    assert gather_rows.launches - before == burnin + gens // 10
+    for key in ("x", "logp", "accepted", "snooker"):
+        np.testing.assert_array_equal(s._history[key], ref._history[key])
+    info_r = ref.reset().run_mcmc_until(theta0, rhat_tol=1.5, chunk=50,
+                                        max_chunks=20, warmup_chunks=2)
+    before = gather_rows.launches
+    info = s.reset().run_mcmc_until(theta0, rhat_tol=1.5, chunk=50,
+                                    max_chunks=20, warmup_chunks=2)
+    steps = int(info["steps"])
+    assert steps == int(info_r["steps"])
+    np.testing.assert_array_equal(info["rhat"], info_r["rhat"])
+    assert gather_rows.launches - before == burnin + (steps - burnin) // 10

@@ -239,7 +239,7 @@ def test_api_fused_rejects_unsupported_config():
         bt.DreamZs(lp, n_chains=8, fused=True, fused_rng="bogus",
                    device="cpu")
     for kw in ({"fused_z_update": 2},
-               {"fused_gather": "kernel"}, {"log_prob_block": lambda x: x},
+               {"fused_gather": "pergen"}, {"log_prob_block": lambda x: x},
                {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             bt.DreamZs(lp, n_chains=8, fused=True, device="cpu", **kw)

@@ -13,7 +13,10 @@ runs on the same key.
 The same run is repeated for the two other configurations the module
 builds, population-DREAM (``dream_config``: rows from the population,
 each ≠ the chain itself, so B3's ``exclude`` path) and DE-MC-z
-(``demcz_config``: one pair, one CR value, no adaptation).
+(``demcz_config``: one pair, one CR value, no adaptation), and for
+DREAM-zs with ``gather_kernel=True`` in both packages (the archive rows
+through B11: ``gather_rows_pallas`` in interpret mode, the port's plain
+version), which must take the same decisions within the same tolerance.
 
 Accept decisions and snooker flags must be identical at every
 generation. The states are held within rtol 1e-5 / atol 1e-5: the two
@@ -60,7 +63,8 @@ def _assert_state_close(port, jax_state, t):
                                    err_msg=f"{name} after generation {t}")
 
 
-@pytest.mark.parametrize("variant", ["dreamzs", "dream", "demcz"])
+@pytest.mark.parametrize("variant", ["dreamzs", "dream", "demcz",
+                                     "dreamzs_gather"])
 def test_sixty_generations_match_jax(variant):
     means = jtargets.baseline_config3_means(D)
     rng = np.random.default_rng(7)
@@ -71,10 +75,12 @@ def test_sixty_generations_match_jax(variant):
 
     builders = {"dreamzs": (jdream.DreamConfig, dream.DreamConfig),
                 "dream": (jdream.dream_config, dream.dream_config),
-                "demcz": (jdream.demcz_config, dream.demcz_config)}
+                "demcz": (jdream.demcz_config, dream.demcz_config),
+                "dreamzs_gather": (jdream.DreamConfig, dream.DreamConfig)}
     jbuild, build = builders[variant]
-    jcfg = jbuild(n_chains=N, burnin_gens=BURNIN, pallas_proposal=True)
-    cfg = build(n_chains=N, burnin_gens=BURNIN)
+    kw = {"gather_kernel": True} if variant == "dreamzs_gather" else {}
+    jcfg = jbuild(n_chains=N, burnin_gens=BURNIN, pallas_proposal=True, **kw)
+    cfg = build(n_chains=N, burnin_gens=BURNIN, **kw)
     assert cfg._asdict() == {**jcfg._asdict(), "pallas_proposal": None}
     jlp = jtargets.gaussian_mixture(means)
     jstate = jdream.init(jnp.asarray(x0), jlp, jcfg, CAP, jnp.asarray(z0))
@@ -120,7 +126,7 @@ def test_sixty_generations_match_jax(variant):
     assert n_acc > 0
     assert (n_snk > 0) == (cfg.p_snooker > 0)
     assert n_reset == 0 or cfg.outlier_detect
-    if variant == "dreamzs":             # this population has outliers
+    if variant.startswith("dreamzs"):    # this population has outliers
         assert n_reset > 0
     assert state.archive.fill == 64 + 6 * N
     assert np.allclose(state.cr_p.numpy(), 1 / cfg.n_cr) != cfg.adapt_cr
