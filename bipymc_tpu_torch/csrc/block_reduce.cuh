@@ -48,6 +48,8 @@ __device__ __forceinline__ void block_sum(float (&v)[NV], int m,
 }
 
 // min(0, v) that propagates NaN, as torch.clamp_max and jnp.minimum do
-__device__ __forceinline__ float min0(float v) { return v >= 0.f ? 0.f : v; }
+// (fminf(0, NaN) is 0)
+template <typename T>
+__device__ __forceinline__ T min0(T v) { return v >= T(0) ? T(0) : v; }
 
 }  // namespace bipymc

@@ -61,6 +61,9 @@ SIGNATURES = {
     "trisolve": ("trisolve_launch", [_P, _P, _P, _I, _I, _I, _L, _I, _P]),
     "gather_rows": ("gather_rows_launch",
                     [_P, _L, _L, _I, _I, _P, _I, _L, _P, _P]),
+    "accept_select": ("accept_select_launch",
+                      [_P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P,
+                       _P, _P, _P]),
 }
 
 

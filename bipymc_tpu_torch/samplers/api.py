@@ -42,7 +42,7 @@ from bipymc_tpu_torch.samplers.stretch_fused import \
 from bipymc_tpu_torch.utils.diagnostics import acceptance_fraction
 from bipymc_tpu_torch.utils.init import var_ball
 
-_FUSED_ITEM = ("ROADMAP Queue A item 18 (the rest of the DREAM-zs fused "
+_FUSED_ITEM = ("ROADMAP Queue A item 18b (the rest of the DREAM-zs fused "
                "engine)")
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
 _API_ITEM = "ROADMAP Queue A item 7 (pool and API)"
@@ -314,9 +314,17 @@ class DreamZs(McmcSampler):
     per-generation engine. The rows, and so the run, are the same. Both
     are off by default, as in the JAX package.
 
+    ``pallas_accept=True``, a ``DreamConfig`` field, runs the
+    per-generation engine's accept and state update through kernel B10
+    (``ops/accept_select.py``) in one launch: with ``fused=True`` in
+    burn-in and any unaligned head or tail, as the chunks' kernel B1
+    carries its own accept. Its ops are exact, so the run is the same
+    bit for bit. Off by default, as in the JAX package.
+
     Not ported, raising ``NotImplementedError``: ``mesh=``,
-    ``fused_z_update > 1``, ``fused_gather="pergen"`` and
-    ``log_prob_block``.
+    ``fused=True`` with ``fused_z_update > 1``, ``fused_gather="pergen"``
+    and ``log_prob_block``. ``fused_z_update < 1``, or ``> 1`` without
+    ``fused=True``, raises the JAX package's ``ValueError``.
     """
 
     def __init__(self, log_like_fn, n_chains=8, seed=0, dtype=torch.float32,
@@ -331,6 +339,13 @@ class DreamZs(McmcSampler):
             raise ValueError(
                 f"fused_gather={fused_gather!r}: expected one of "
                 f"{GATHER_MODES}")
+        if fused_z_update < 1:
+            raise ValueError(
+                f"fused_z_update={fused_z_update}: must be >= 1")
+        if fused_z_update > 1 and not fused:
+            raise ValueError(
+                "fused_z_update > 1 is a fused-engine execution knob; "
+                "pass fused=True")
         if fused_gather != "block" and not fused:
             raise ValueError(
                 "fused_gather is a fused-engine execution knob; pass "
@@ -340,6 +355,7 @@ class DreamZs(McmcSampler):
             raise ValueError(
                 f"fused_rng={fused_rng!r}: expected 'stream' or 'kernel'")
         check_gather_mode(fused_gather)
+        # past the checks above, fused_z_update != 1 means fused=True
         unported = [name for name, v, default in (
             ("fused_z_update", fused_z_update, 1),
             ("log_prob_block", log_prob_block, None)) if v != default]

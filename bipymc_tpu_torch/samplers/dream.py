@@ -14,10 +14,11 @@ so both packages run the same generation.
 
 The generation counter is a host int, so the schedule (jump, burn-in,
 outlier check, archive append) is decided on the host and no generation
-reads a device scalar. The two kernels of the step, B3 (row indices)
-and B2 (proposal), and B11 (the archive rows, with ``gather_kernel=True``)
-go through their dispatchers: on the card they launch the CUDA kernels,
-on the CPU they run the plain versions. The
+reads a device scalar. The kernels of the step, B3 (row indices), B2
+(proposal), B11 (the archive rows, with ``gather_kernel=True``) and B10
+(the accept and state update, with ``pallas_accept=True``), go through
+their dispatchers: on the card they launch the CUDA kernels, on
+the CPU they run the plain versions. The
 fused engine (``samplers/dream_fused.py``) runs the same generation,
 ``archive_thin`` at a time after burn-in.
 """
@@ -29,13 +30,13 @@ import torch
 from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
 from bipymc_tpu_torch.ensemble.archive import (
     Archive, archive_append, archive_init)
+from bipymc_tpu_torch.ops.accept_select import (
+    accept_select, accept_select_reference)
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose
-from bipymc_tpu_torch.ops.fused_chunk import metropolis_select
 from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
-_OFF_DEFAULT_KERNELS = "ROADMAP Queue B"
 
 
 class DreamConfig(NamedTuple):
@@ -61,7 +62,9 @@ class DreamConfig(NamedTuple):
                                          # config: B2/B3 run as kernels on
                                          # CUDA and as their plain versions
                                          # on the CPU; False on CUDA raises.
-    pallas_accept: bool = False  # kernel B10 — not ported yet
+    pallas_accept: bool = False  # the accept and state update through
+                                 # kernel B10 (ops/accept_select.py)
+                                 # instead of torch ops; bit-equal
     jump_full_cr: bool = False   # CR=1 on γ=1 jump generations
     shard_archive: bool = False  # mesh-only — not ported yet
     gather_kernel: bool = False  # the archive rows through kernel B11
@@ -87,9 +90,10 @@ def dream_config(n_chains: int, **kw) -> DreamConfig:
 
 
 def check_config(cfg: DreamConfig, device=None) -> None:
-    """Raise ``NotImplementedError`` for the fields the port lacks, and
-    ``ValueError`` for ``pallas_proposal=False`` on a CUDA ``device`` and
-    for ``gather_kernel=True`` without an archive."""
+    """Raise ``NotImplementedError`` for the field the port lacks
+    (``shard_archive``), and ``ValueError`` for ``pallas_proposal=False``
+    on a CUDA ``device`` and for ``gather_kernel=True`` without an
+    archive. ``pallas_accept=True`` is taken (kernel B10)."""
     if (cfg.pallas_proposal is False and device is not None
             and torch.device(device).type == "cuda"):
         raise ValueError(
@@ -98,10 +102,6 @@ def check_config(cfg: DreamConfig, device=None) -> None:
     if cfg.shard_archive:
         raise NotImplementedError(
             f"shard_archive=True is mesh-only: {_MESH_ITEM}")
-    if cfg.pallas_accept:
-        raise NotImplementedError(
-            "pallas_accept=True needs kernel B10 (accept_select), not "
-            f"ported yet: {_OFF_DEFAULT_KERNELS} item 10")
     if cfg.gather_kernel and not cfg.use_archive:
         # bipymc_tpu/samplers/dream.py:181-186
         raise ValueError(
@@ -179,6 +179,8 @@ def make_step(log_prob: Callable, cfg: DreamConfig) -> Callable:
     check_config(cfg)
     n_pairs = cfg.delta_max
     k_rows = n_rows(cfg)
+    # kernel B10 or its plain version: the same exact ops, bit-equal
+    accept = accept_select if cfg.pallas_accept else accept_select_reference
 
     def step(state: DreamState, words: torch.Tensor, t: int):
         x = state.x
@@ -236,10 +238,10 @@ def make_step(log_prob: Callable, cfg: DreamConfig) -> Callable:
             b=cfg.b, b_star=cfg.b_star)
 
         # Metropolis accept with the snooker Jacobian; non-finite → reject
-        x_new, logp_new, acc, _ = metropolis_select(
-            x, state.logp, x_star, log_prob(x_star), log_jac,
-            torch.log(u_acc))
-        logp_sum = state.logp_sum + logp_new
+        logp_star = log_prob(x_star)
+        log_u = torch.log(u_acc)
+        x_new, logp_new, logp_sum, acc = accept(
+            x, x_star, state.logp, logp_star, log_jac, log_u, state.logp_sum)
 
         cr_p, cr_cum = state.cr_p, state.cr_cum
         cr_jump, cr_count = state.cr_jump, state.cr_count

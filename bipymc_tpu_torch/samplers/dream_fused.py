@@ -33,12 +33,15 @@ torch indexing (``gather_mode="block"``, the default) or kernel B11
 (``gather_mode="kernel"``, ``ops/gather_rows.py``); the rows are the
 same. The JAX package's ``"pergen"`` mode, G per-generation gathers
 under ``lax.map`` (``bipymc_tpu/samplers/dream_fused.py:98-99``), is a
-TPU lowering with no kernel of its own; it raises, and waits with B10
-(ROADMAP Queue A item 18b). Its module global ``_GATHER_MODE``
+TPU lowering with no kernel of its own; it raises (ROADMAP Queue A item
+18b). Its module global ``_GATHER_MODE``
 (``:85``) is left behind (ROADMAP A16): the mode is an argument.
 
 Not ported (``samplers/api.py`` raises for each, naming its ROADMAP
-item): the mesh, ``z_update_every > 1`` and ``log_prob_block``.
+item): the mesh, ``z_update_every > 1`` and ``log_prob_block``. The
+chunks' kernel B1 carries its own accept, so ``pallas_accept=True``
+(kernel B10) reaches only the generations the per-generation engine
+runs around them.
 """
 
 from typing import Callable
@@ -55,7 +58,7 @@ from bipymc_tpu_torch.samplers.dream import (DreamConfig, DreamState,
 from bipymc_tpu_torch.utils.streaming import rhat_init, rhat_update_block
 
 _MESH_ITEM = "ROADMAP Queue A item 15 (multi-GPU)"
-_PERGEN_ITEM = "ROADMAP Queue A item 18b (with B10)"
+_PERGEN_ITEM = "ROADMAP Queue A item 18b"
 GATHER_MODES = ("block", "pergen", "kernel")
 
 

@@ -1,13 +1,17 @@
-"""Helpers that hold kernels B1 and B9 against their plain versions.
+"""Helpers that hold kernels B1, B9 and B10 against their plain versions.
 
 Used by ``chip_smoke.py`` and the tests; no sampler path calls them.
 A float32 kernel and its plain version may round a Metropolis decision
 differently where log u lies within rounding of log α, so the checks
 read the plain version's log α (:func:`plain_log_alpha`,
 :func:`stretch_log_alpha`) and excuse only such near ties
-(:func:`match_decisions`, :func:`match_stretch_decisions`).
+(:func:`match_decisions`, :func:`match_stretch_decisions`). B10's ops are
+exact, so its checks excuse nothing; they run on
+:func:`accept_operands`, random operands with the edge rows of
+:data:`ACCEPT_EDGE_ROWS` written in.
 """
 
+import numpy as np
 import torch
 
 from bipymc_tpu_torch.ops.dream_proposal import propose_plain
@@ -94,3 +98,68 @@ def match_stretch_decisions(acc, ref_acc, ref_margin, tol=1e-4):
             f"reference's with |log u - log alpha| = "
             f"{float(ref_margin[g0, i]):.3g} >= {tol}")
     return gen < g0, int(diff[g0].sum())
+
+
+# B10's edge rows: the operand values that make each row, and whether the
+# row must be accepted (a logp* that is not finite rejects; a NaN log α,
+# from a NaN current logp or log Jacobian, rejects; logp = −inf gives
+# log α = 0)
+ACCEPT_FIELDS = ("x", "x_star", "logp", "logp_star", "log_jac", "log_u",
+                 "logp_sum")
+ACCEPT_EDGE_ROWS = (
+    ({"logp_star": np.nan}, False),
+    ({"logp_star": np.inf}, False),
+    ({"logp_star": -np.inf}, False),
+    ({"logp": np.nan}, False),
+    ({"logp": -np.inf}, True),
+    ({"logp": np.inf}, False),
+    ({"log_jac": np.nan}, False),
+    ({"log_u": -np.inf}, True),
+    ({"logp_star": "logp", "log_jac": 0.0}, True),
+)
+
+
+def accept_operands(n, d, seed, edges=ACCEPT_EDGE_ROWS, dtype=np.float32):
+    """B10's operands as NumPy arrays of ``dtype``, by
+    :data:`ACCEPT_FIELDS`, made from ``seed``: x, x* [n, d] ~ N(0, 1);
+    logp, logp* ~ N(0, 10²); log_jac ~ N(0, 0.1²); log u of U[0, 1);
+    logp_sum ~ N(0, 1); ``edges`` (rows of :data:`ACCEPT_EDGE_ROWS`)
+    written into rows 0, 1, … (n ≥ len(edges))."""
+    rng = np.random.default_rng(seed)
+    ops = {"x": rng.standard_normal((n, d)),
+           "x_star": rng.standard_normal((n, d)),
+           "logp": 10.0 * rng.standard_normal(n),
+           "logp_star": 10.0 * rng.standard_normal(n),
+           "log_jac": 0.1 * rng.standard_normal(n),
+           "log_u": np.log(rng.random(n)),
+           "logp_sum": rng.standard_normal(n)}
+    for row, (edge, _) in enumerate(edges):
+        for field, value in edge.items():
+            ops[field][row] = (ops[value][row] if isinstance(value, str)
+                               else value)
+    return {k: v.astype(dtype) for k, v in ops.items()}
+
+
+def accept_edge_groups(n):
+    """:data:`ACCEPT_EDGE_ROWS` cut into groups of at most n rows, one
+    operand set a group, so that every shape meets every edge row."""
+    return [ACCEPT_EDGE_ROWS[i:i + n]
+            for i in range(0, len(ACCEPT_EDGE_ROWS), n)]
+
+
+def check_accept_edges(accepted, edges):
+    """Raise if an edge row's accept bit is not the one it must be."""
+    for row, (edge, want) in enumerate(edges):
+        if bool(accepted[row]) != want:
+            raise AssertionError(f"B10 edge row {edge}: accepted "
+                                 f"{bool(accepted[row])}, want {want}")
+
+
+def bit_equal(a, b):
+    """Whether tensors a and b hold the same bits, NaN payloads included
+    (``torch.equal`` fails on NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(as_int), b.view(as_int))

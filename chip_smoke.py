@@ -88,6 +88,15 @@ non-zero:
    buffers; a buffer with a row stride of 101; and an empty index set,
    which must launch nothing. Timed at the fused chunk's shape beside
    ``torch.index_select`` (the library call) and torch indexing.
+2h. B10 (``accept_select``) against its plain version on the card, every
+   case bit-equal by bit patterns (its ops are exact; NaN ≠ NaN defeats
+   ``torch.equal``): [n, d] in {(256, 100) (config 3), (1024, 100), (4096,
+   100), (1024, 2) (config 5's DREAM), (200, 37), (7, 129), (1, 1)} in
+   float32 and (256, 100) in float64, random operands from the seed with
+   the edge rows of ``testing.ACCEPT_EDGE_ROWS`` (logp* NaN, ±inf; the
+   current logp NaN, ±inf; log_jac NaN; log u = −inf; logp* = logp), each
+   of which must take its own decision. Timed at (256, 100) and (4096,
+   100); no single torch call computes the function (library: none).
 2f. B9 (``fused_stretch``) against its plain version on the card: at the
    stretch path's own shape, [G, n, d] = [64, 256, 16] on its target
    with its start and its first chunk's words, and at (G, n, d) in {(64,
@@ -128,6 +137,27 @@ non-zero:
    3c's, and the R̂ stop must take phase 3c's generations with its R̂.
    Then 20 chunks timed alone and under the profiler, B11's µs a chunk
    beside phase 3c's torch gather.
+3e. Phase 3's run again with ``DreamZs(pallas_accept=True)``: B10, B2
+   and B3 must each have launched 7,500 times and B11 none; the
+   ``accepted`` and ``x`` histories must be bit-equal to phase 3's over
+   all 7,500 generations, and every mode must still hold a chain. B10
+   must have launched no time in phases 3-3d (the defaults). Then both
+   samplers in turns (default, B10, B10, default, twice), 200
+   generations each, and 200 generations each under the profiler: wall,
+   busy share and kernels a generation.
+3f. Phase 3c's sampler (``fused=True, fused_rng="kernel"``) again with
+   ``pallas_accept=True``: B10 must have launched 500 times (the
+   burn-in) and in no chunk, and the ``accepted`` and ``x`` histories
+   must be bit-equal to phase 3c's over its 7,500 generations.
+3g. The JAX package's own A/B workload for B10
+   (``benchmarks/profile_accept_fusion.py:38-52``): n in {1024, 4096}
+   chains × d = 100 on config 3's mixture, archive 8,192, burn-in 500,
+   driven through ``dream.make_step`` with ``StepWords`` and only
+   ``accepted`` kept. Both variants run the burn-in, then turns of 200
+   generations (default, B10, B10, default, twice) and 200 generations
+   under the profiler; their accept bits must be equal at every
+   generation. µs and kernels a generation of each. The workload's
+   third size, 256 chains, is phase 3e's turns.
 4. The R̂ stop: 256 chains in one basin, ``run_mcmc_until`` to R̂ < 1.1,
    one warm call, ``reset()``, one timed call. Both kernels must have
    launched once per generation of the two calls.
@@ -183,8 +213,8 @@ non-zero:
    both engines (warm call, ``reset()``, timed call), which must stop at
    the same generation, B9 launching twice a 100-generation chunk on the
    fused engine and never on the other.
-10. One JSON line of the kernels (ten ported, eleven records: B1 has one
-   a mode), the card's line, and the result line.
+10. One JSON line of the kernels (all eleven ported, twelve records: B1
+   has one a mode), the card's line, and the result line.
 
 Exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the ``bipymc_tpu_torch`` package is not beside this file.
@@ -958,6 +988,80 @@ def check_b11(dev):
     return record
 
 
+# ---------------------------------------------------------------- phase 2h
+# config 3's, the A/B's of phase 3g, config 5's DREAM (1,024 × 2), the
+# JAX package's test's, ragged ones, and config 3's in float64
+B10_SHAPES = [(N_CHAINS, D, np.float32), (1024, D, np.float32),
+              (4096, D, np.float32), (1024, 2, np.float32),
+              (200, 37, np.float32), (7, 129, np.float32), (1, 1, np.float32),
+              (N_CHAINS, D, np.float64)]
+
+
+def b10_operands(n, d, seed, edges, dtype, dev):
+    from bipymc_tpu_torch.testing import ACCEPT_FIELDS, accept_operands
+
+    ops = accept_operands(n, d, seed, edges, dtype=dtype)
+    return [torch.from_numpy(ops[k]).to(dev) for k in ACCEPT_FIELDS]
+
+
+def b10_work(n, d, elem):
+    """B10's bytes (the kept row of x or x* read, x_new's row written;
+    five scalars in, two out and the accept byte, a chain) and
+    operations (subtract, add, min, the finite test, compare, and, two
+    selects and an add, a chain)."""
+    return 2 * n * d * elem + n * (7 * elem + 1), 10 * n
+
+
+def check_b10(dev):
+    from bipymc_tpu_torch.ops.accept_select import (accept_select,
+                                                    accept_select_reference)
+    from bipymc_tpu_torch.testing import (accept_edge_groups, bit_equal,
+                                          check_accept_edges)
+
+    n_cases = 0
+    for n, d, dtype in B10_SHAPES:
+        for i, edges in enumerate(accept_edge_groups(n)):
+            ops = b10_operands(n, d, SEED + n + d + i, edges, dtype, dev)
+            before = accept_select.launches
+            out = accept_select(*ops)
+            ref = accept_select_reference(*ops)
+            torch.cuda.synchronize()
+            if accept_select.launches != before + 1:
+                raise AssertionError(f"B10 at [{n}, {d}]: launched "
+                                     f"{accept_select.launches - before} "
+                                     "times")
+            for name, a, b in zip(("x_new", "logp_new", "logp_sum_new",
+                                   "accepted"), out, ref):
+                if not bit_equal(a, b):
+                    raise AssertionError(
+                        f"B10 differs from its plain version at [{n}, {d}] "
+                        f"{np.dtype(dtype).name}: {name}")
+            check_accept_edges(out[3].cpu(), edges)
+            n_cases += 1
+    shapes = [f"{n}x{d} {np.dtype(t).name}" for n, d, t in B10_SHAPES]
+    log(f"B10 accept_select: bit-equal to the plain version in {n_cases} "
+        f"cases ({', '.join(shapes)}; every shape with the NaN and "
+        "infinite edge rows)")
+
+    record = None
+    for n in (N_CHAINS, 4096):
+        ops = b10_operands(n, D, SEED, (), np.float32, dev)
+        times = (device_ms(lambda: accept_select(*ops)),
+                 device_ms(lambda: accept_select_reference(*ops)),
+                 call_ms(lambda: accept_select(*ops)),
+                 call_ms(lambda: accept_select_reference(*ops)))
+        rec = kernel_record(
+            "accept_select", "bipymc_tpu_torch/csrc/accept_select.cu",
+            "bipymc_tpu/ops/accept_select.py:57", 0.0, times,
+            *b10_work(n, D, 4))
+        if record is None:
+            record = rec
+        else:
+            record["at_4096x100"] = {k: rec[k] for k in (
+                "ms", "plain_ms", "call_ms", "plain_call_ms", "bound_ms")}
+    return record
+
+
 # ---------------------------------------------------------------- phase 3
 def main_path(dev):
     import bipymc_tpu_torch as bt
@@ -965,11 +1069,13 @@ def main_path(dev):
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
     from bipymc_tpu_torch.ops.gather_rows import gather_rows
 
+    from bipymc_tpu_torch.ops.accept_select import accept_select
+
     log_prob, means, theta0 = config3_setup(dev)
     s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
                    burnin_gens=BURNIN, archive_capacity=CAPACITY, device=dev)
     distinct_idx.launches = dream_propose.launches = 0
-    gather_rows.launches = 0
+    gather_rows.launches = accept_select.launches = 0
     t0 = time.perf_counter()
     s.run_mcmc(WARM_GENS, theta0)
     warm_s = time.perf_counter() - t0
@@ -1005,7 +1111,7 @@ def main_path(dev):
     if occ.min() == 0:
         raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
     busy_share(s)
-    return launches
+    return launches, s
 
 
 def busy_share(s, n_units=200, per_unit=1, unit="gen"):
@@ -1153,6 +1259,193 @@ def fused_modes_side_by_side(stream_res, kernel_res, s_stream, s_kernel):
              for s in (s_stream, s_kernel, s_kernel, s_stream)]
     log("wall us a chunk in turns (stream, kernel RNG, kernel RNG, "
         "stream):", json.dumps(walls))
+
+
+# ------------------------------------------------------ phases 3e, 3f, 3g
+def wall_us_per_gen(step_fn, n_gens):
+    """Host wall µs a generation of ``step_fn(n_gens)``, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(n_gens)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_gens * 1e6
+
+
+def in_turns(run_default, run_b10, n_gens=200, rounds=2):
+    """Wall µs a generation of the two variants in turns (default, B10,
+    B10, default), ``rounds`` times."""
+    out = {"default": [], "b10": []}
+    for _ in range(rounds):
+        for key, fn in (("default", run_default), ("b10", run_b10),
+                        ("b10", run_b10), ("default", run_default)):
+            out[key].append(wall_us_per_gen(fn, n_gens))
+    return out
+
+
+def accept_path(dev, s_ref):
+    """Phase 3e: phase 3's run with ``pallas_accept=True``, held to phase
+    3's sampler ``s_ref``; then both samplers in turns and profiled.
+    Returns B10's launches."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.accept_select import accept_select
+    from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
+    from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.gather_rows import gather_rows
+
+    log_prob, means, theta0 = config3_setup(dev)
+    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
+                   burnin_gens=BURNIN, archive_capacity=CAPACITY,
+                   pallas_accept=True, device=dev)
+    distinct_idx.launches = dream_propose.launches = 0
+    gather_rows.launches = accept_select.launches = 0
+    s.run_mcmc(WARM_GENS, theta0)
+    t0 = time.perf_counter()
+    s.run_mcmc(TIMED_GENS)
+    elapsed = time.perf_counter() - t0
+    n_gens = WARM_GENS + TIMED_GENS
+    launches = {"accept_select": accept_select.launches,
+                "dream_propose": dream_propose.launches,
+                "distinct_idx": distinct_idx.launches,
+                "gather_rows": gather_rows.launches}
+    want = {"accept_select": n_gens, "dream_propose": n_gens,
+            "distinct_idx": n_gens, "gather_rows": 0}
+    if launches != want:
+        raise AssertionError(f"config 3 with B10 launched {launches}, "
+                             f"want {want}")
+    h, h_ref = s._history, s_ref._history
+    for key in ("accepted", "x"):
+        if not np.array_equal(h[key][:n_gens], h_ref[key][:n_gens]):
+            raise AssertionError(f"phase 3e: the {key} history differs from "
+                                 "phase 3's")
+    occ = bt.mode_occupancy(s.get_chain(discard=WARM_GENS)[:, -1], means)
+    if occ.min() == 0:
+        raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
+    walls = in_turns(lambda k: s_ref.run_mcmc(k), lambda k: s.run_mcmc(k))
+    profiles = {}
+    for key, smp in (("default", s_ref), ("b10", s)):
+        wall_us, rows = busy_share(smp)
+        busy_us = sum(us for us, _ in rows.values()) / 200
+        profiles[key] = {
+            "wall_us_per_gen": wall_us, "busy_us_per_gen": busy_us,
+            "busy_share": busy_us / wall_us,
+            "kernels_per_gen": sum(c for _, c in rows.values()) / 200,
+            "b10_us_per_gen": sum(us for k, (us, _) in rows.items()
+                                  if "accept_select" in k) / 200}
+    if profiles["b10"]["b10_us_per_gen"] <= 0 or \
+            profiles["default"]["b10_us_per_gen"] > 0:
+        raise AssertionError("phase 3e: B10 in the profiles is not as "
+                             "configured")
+    log("config 3 per generation, default (3) vs B10 (3e):", json.dumps(
+        {"bit_equal_gens": n_gens, "launches": launches,
+         "mode_occupancy": occ.tolist(),
+         "gens_per_sec_b10": TIMED_GENS / elapsed,
+         "wall_us_per_gen_in_turns": walls, "profiles": profiles}))
+    return launches["accept_select"]
+
+
+def fused_accept_path(dev, s_ref):
+    """Phase 3f: phase 3c's sampler (kernel RNG) with ``pallas_accept=True``:
+    B10 in the 500 burn-in generations and in no chunk, the histories
+    bit-equal to phase 3c's sampler ``s_ref``."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.ops.accept_select import accept_select
+    from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
+    from bipymc_tpu_torch.ops.dream_proposal import dream_propose
+    from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
+
+    log_prob, _, theta0 = config3_setup(dev)
+    s = bt.DreamZs(log_prob, n_chains=N_CHAINS, seed=SEED,
+                   burnin_gens=BURNIN, archive_capacity=CAPACITY, fused=True,
+                   fused_rng="kernel", pallas_accept=True, device=dev)
+    distinct_idx.launches = dream_propose.launches = fused_chunk.launches = 0
+    fused_chunk.kernel_rng_launches = accept_select.launches = 0
+    n_gens = WARM_GENS + TIMED_GENS
+    s.run_mcmc(WARM_GENS, theta0)
+    s.run_mcmc(TIMED_GENS)
+    n_chunks = (n_gens - BURNIN) // 10
+    launches = {"accept_select": accept_select.launches,
+                "dream_propose": dream_propose.launches,
+                "distinct_idx": distinct_idx.launches,
+                "fused_chunk_kernel_rng": fused_chunk.kernel_rng_launches}
+    want = {"accept_select": BURNIN, "dream_propose": BURNIN,
+            "distinct_idx": BURNIN + n_chunks,
+            "fused_chunk_kernel_rng": n_chunks}
+    if launches != want or fused_chunk.launches != n_chunks:
+        raise AssertionError(f"fused kernel-RNG config 3 with B10 launched "
+                             f"{launches}, want {want}")
+    h, h_ref = s._history, s_ref._history
+    for key in ("accepted", "x"):
+        if not np.array_equal(h[key][:n_gens], h_ref[key][:n_gens]):
+            raise AssertionError(f"phase 3f: the {key} history differs from "
+                                 "phase 3c's")
+    log("config 3 fused kernel RNG with B10 in burn-in (3f):", json.dumps(
+        {"bit_equal_gens": n_gens, "launches": launches}))
+
+
+# the JAX package's A/B sizes but 256, which phase 3e's turns measure
+AB_CHAINS = (1024, 4096)
+
+
+def accept_ab(dev):
+    """Phase 3g: the JAX package's own A/B workload for B10
+    (``benchmarks/profile_accept_fusion.py:38-52``) on the port: n chains
+    × d = 100 on config 3's mixture, archive 8,192, burn-in 500, through
+    ``dream.make_step`` with ``StepWords`` and only ``accepted`` kept;
+    both variants run the burn-in, then turns of 200 generations. The
+    variants' accept bits must be equal at every generation."""
+    import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.core.rng import StepWords
+    from bipymc_tpu_torch.samplers import dream
+
+    means = bt.baseline_config3_means(D)
+    lp = bt.gaussian_mixture(means, sigma=1.0)
+    rows = []
+    for n in AB_CHAINS:
+        variants = {}
+        for key, pa in (("default", False), ("b10", True)):
+            cfg = dream.DreamConfig(n_chains=n, burnin_gens=BURNIN,
+                                    pallas_accept=pa)
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            x0 = bt.stratified_mode_init(g, means, n, var=4.0, device=dev)
+            z0 = bt.stratified_mode_init(g, means, n, var=4.0, device=dev)
+            variants[key] = {
+                "state": dream.init(x0, lp, cfg, CAPACITY, z0),
+                "step": dream.make_step(lp, cfg), "t": 0, "acc": [],
+                "n_words": dream.n_words(cfg, D)}
+        words = StepWords(SEED)
+
+        def runner(v):
+            def run(n_gens):
+                st = v["state"]
+                for t in range(v["t"], v["t"] + n_gens):
+                    st, info = v["step"](st, words(t, n, v["n_words"], dev),
+                                         t)
+                    v["acc"].append(info.accepted)
+                v["state"], v["t"] = st, v["t"] + n_gens
+            return run
+
+        run = {key: runner(v) for key, v in variants.items()}
+        for key in run:
+            run[key](BURNIN)
+        walls = in_turns(run["default"], run["b10"])
+        kernels = {}
+        for key in run:
+            prof = device_times(lambda: run[key](200), 1)
+            kernels[key] = sum(c for _, c in prof.values()) / 200
+        acc = {key: torch.stack(v["acc"]) for key, v in variants.items()}
+        if not torch.equal(acc["default"], acc["b10"]):
+            bad = int((acc["default"] != acc["b10"]).any(1).nonzero()[0])
+            raise AssertionError(f"phase 3g, {n} chains: the variants' "
+                                 f"accept bits differ at generation {bad}")
+        row = {"n_chains": n, "gens_compared": acc["b10"].shape[0],
+               "acceptance": float(acc["b10"].float().mean()),
+               "us_per_gen_in_turns": walls,
+               "median_us_per_gen": {k: float(np.median(w))
+                                     for k, w in walls.items()},
+               "kernels_per_gen": kernels}
+        log("B10 A/B (3g):", json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2392,9 +2685,10 @@ def main():
                check_b6(dev)]
     records[3]["config5_grad"] = check_b5_grad(dev)
     records += [check_b7(dev), check_b8(dev), check_b1(dev),
-                check_b1_kernel_rng(dev), check_b9(dev), check_b11(dev)]
+                check_b1_kernel_rng(dev), check_b9(dev), check_b11(dev),
+                check_b10(dev)]
     launch_floor(dev)
-    launches = main_path(dev)
+    launches, s_pergen = main_path(dev)
     stream_launches, stream_res, s_stream = fused_path(dev)
     kernel_launches, kernel_res, s_kernel = fused_path(dev, rng="kernel")
     launches["fused_chunk"] = stream_launches["fused_chunk"]
@@ -2407,6 +2701,14 @@ def main():
                              "in phases 3, 3b and 3c (the defaults)")
     launches["gather_rows"] = gather_path(dev, s_kernel,
                                           kernel_res)["gather_rows"]
+    from bipymc_tpu_torch.ops.accept_select import accept_select
+    if accept_select.launches:        # since phase 3 began
+        raise AssertionError(f"B10 launched {accept_select.launches} times "
+                             "in phases 3-3d (the defaults)")
+    launches["accept_select"] = accept_path(dev, s_pergen)
+    fused_accept_path(dev, s_kernel)
+    del s_pergen, s_stream, s_kernel
+    accept_ab(dev)
     rhat_stop(dev)
     launches["fused_rw_chunk"] = config1_path(dev)
     rw_rhat_stop(dev)

@@ -117,11 +117,20 @@ def test_input_probes_raise():
 
 @pytest.mark.parametrize("kw", [
     {"mesh": object()},
-    {"fused_z_update": 2}, {"fused_gather": "pergen", "fused": True},
-    {"log_prob_block": lambda x: x}, {"shard_archive": True},
-    {"pallas_accept": True}])
+    {"fused_z_update": 2, "fused": True},
+    {"fused_gather": "pergen", "fused": True},
+    {"log_prob_block": lambda x: x}, {"shard_archive": True}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _sampler(**kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"fused_z_update": 0, "fused": True}, ">= 1"),
+    ({"fused_z_update": 2}, "fused=True")])
+def test_invalid_fused_z_update_raises_value_error(kw, match):
+    # the JAX package's checks (tests/test_fused_chunk.py pins them)
+    with pytest.raises(ValueError, match=match):
         _sampler(**kw)
 
 

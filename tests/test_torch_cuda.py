@@ -40,8 +40,12 @@ B11 must be bit-equal to its plain version (a copy is a copy), in every
 element type and for indices out of range, and ``DreamZs`` with
 ``fused_gather="kernel"`` and ``gather_kernel=True`` must launch it once
 a generation and once a chunk and take the default route's decisions,
-positions bit-equal. The unmarked tests run everywhere: a tensor on a device with no kernel
-raises rather than taking the plain version.
+positions bit-equal. B10 must be bit-equal to its plain version (its ops
+are exact), NaN and infinite edge rows included, and ``DreamZs`` with
+``pallas_accept=True`` must launch it once a per-generation step and
+never in a fused chunk, and take the default route's decisions,
+positions bit-equal. The unmarked tests run everywhere: a tensor on a
+device with no kernel raises rather than taking the plain version.
 """
 
 import numpy as np
@@ -50,6 +54,8 @@ import torch
 
 import bipymc_tpu_torch as bt
 from bipymc_tpu_torch.core.rng import draw_words
+from bipymc_tpu_torch.ops.accept_select import (accept_select,
+                                                accept_select_reference)
 from bipymc_tpu_torch.ensemble.indices import distinct_from_bits
 from bipymc_tpu_torch.ops.distinct_idx import distinct_idx
 from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
@@ -73,7 +79,9 @@ from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
 from bipymc_tpu_torch.samplers import dream, rw, stretch
 from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
 from bipymc_tpu_torch.samplers.stretch_fused import chunk_words
-from bipymc_tpu_torch.testing import (match_decisions,
+from bipymc_tpu_torch.testing import (ACCEPT_FIELDS, accept_edge_groups,
+                                      accept_operands, bit_equal,
+                                      check_accept_edges, match_decisions,
                                       match_stretch_decisions,
                                       plain_log_alpha, stretch_log_alpha)
 
@@ -1106,3 +1114,86 @@ def test_dreamzs_gather_flags_on_card_take_default_decisions(cuda,
     assert steps == int(info_r["steps"])
     np.testing.assert_array_equal(info["rhat"], info_r["rhat"])
     assert gather_rows.launches - before == burnin + (steps - burnin) // 10
+
+
+# ---- kernel B10: accept_select ----------------------------------------------
+
+def _b10_operands(n, d, seed, edges, dtype, device):
+    ops = accept_operands(n, d, seed, edges, dtype=dtype)
+    return [torch.from_numpy(ops[k]).to(device) for k in ACCEPT_FIELDS]
+
+
+def test_b10_meta_tensors_raise_instead_of_plain():
+    ops = _b10_operands(8, 3, 0, (), np.float32, "meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        accept_select(*ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,dtype", [
+    (256, 100, np.float32), (1024, 100, np.float32), (4096, 100, np.float32),
+    (1024, 2, np.float32), (200, 37, np.float32), (7, 129, np.float32),
+    (1, 1, np.float32), (256, 100, np.float64)])
+def test_b10_kernel_matches_plain(cuda, n, d, dtype):
+    for i, edges in enumerate(accept_edge_groups(n)):
+        ops = _b10_operands(n, d, n + d + i, edges, dtype, cuda)
+        before = accept_select.launches
+        out = accept_select(*ops)
+        torch.cuda.synchronize()
+        assert accept_select.launches == before + 1
+        for name, a, b in zip(("x_new", "logp_new", "logp_sum_new",
+                               "accepted"), out,
+                              accept_select_reference(*ops)):
+            assert bit_equal(a, b), (name, edges)
+        check_accept_edges(out[3].cpu(), edges)
+
+
+@pytest.mark.cuda
+def test_b10_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, x_star, *vecs = _b10_operands(64, 100, 0, (), np.float32, cuda)
+    with pytest.raises(ValueError, match="x_star on cpu"):
+        accept_select(x, x_star.cpu(), *vecs)
+    with pytest.raises(ValueError, match="logp on cpu"):
+        accept_select(x, x_star, vecs[0].cpu(), *vecs[1:])
+    with pytest.raises(TypeError, match="one dtype"):
+        accept_select(x, x_star.double(), *vecs)
+    with pytest.raises(TypeError, match="no kernel for dtype"):
+        accept_select(*(t.half() for t in (x, x_star, *vecs)))
+    with pytest.raises(ValueError, match="unit stride"):
+        accept_select(x.t().contiguous().t(), x_star, *vecs)
+    strided = torch.stack([vecs[3], vecs[3]], dim=1)[:, 0]
+    with pytest.raises(ValueError, match="log_u must be contiguous"):
+        accept_select(x, x_star, *vecs[:3], strided, vecs[4])
+    # a row stride is taken: x a view of a [64, 101] buffer
+    wide = torch.zeros((64, 101), device=cuda)
+    wide[:, :100] = x
+    out = accept_select(wide[:, :100], x_star, *vecs)
+    for a, b in zip(out, accept_select_reference(x, x_star, *vecs)):
+        assert bit_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_dreamzs_pallas_accept_on_card_takes_default_decisions(cuda, fused):
+    """``DreamZs(pallas_accept=True)`` on the card: B10 once a
+    per-generation step (every generation, or burn-in alone with
+    ``fused=True, fused_rng="kernel"``, whose chunks run B1), and the
+    default route's decisions and positions, bit for bit."""
+    n, d, burnin, gens = 64, 20, 100, 60
+    means = bt.baseline_config3_means(d)
+    theta0 = bt.stratified_mode_init(
+        torch.Generator(device=cuda).manual_seed(0), means, n, device=cuda)
+    kw = dict(n_chains=n, seed=0, burnin_gens=burnin, archive_capacity=2048,
+              device=cuda)
+    if fused:
+        kw.update(fused=True, fused_rng="kernel")
+    ref = bt.DreamZs(bt.gaussian_mixture(means), **kw)
+    before = accept_select.launches
+    ref.run_mcmc(burnin + gens, theta0)
+    assert accept_select.launches == before
+    s = bt.DreamZs(bt.gaussian_mixture(means), pallas_accept=True, **kw)
+    s.run_mcmc(burnin + gens, theta0)
+    assert accept_select.launches - before == (burnin if fused
+                                               else burnin + gens)
+    for key in ("x", "logp", "accepted", "snooker"):
+        np.testing.assert_array_equal(s._history[key], ref._history[key])

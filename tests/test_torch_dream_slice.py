@@ -13,10 +13,13 @@ runs on the same key.
 The same run is repeated for the two other configurations the module
 builds, population-DREAM (``dream_config``: rows from the population,
 each ≠ the chain itself, so B3's ``exclude`` path) and DE-MC-z
-(``demcz_config``: one pair, one CR value, no adaptation), and for
+(``demcz_config``: one pair, one CR value, no adaptation), for
 DREAM-zs with ``gather_kernel=True`` in both packages (the archive rows
 through B11: ``gather_rows_pallas`` in interpret mode, the port's plain
-version), which must take the same decisions within the same tolerance.
+version), and for DREAM-zs with ``pallas_accept=True`` in both packages
+(the accept and state update through B10: ``accept_select_pallas`` in
+interpret mode, the port's plain version, itself exact), which must take
+the same decisions within the same tolerance.
 
 Accept decisions and snooker flags must be identical at every
 generation. The states are held within rtol 1e-5 / atol 1e-5: the two
@@ -64,7 +67,7 @@ def _assert_state_close(port, jax_state, t):
 
 
 @pytest.mark.parametrize("variant", ["dreamzs", "dream", "demcz",
-                                     "dreamzs_gather"])
+                                     "dreamzs_gather", "dreamzs_accept"])
 def test_sixty_generations_match_jax(variant):
     means = jtargets.baseline_config3_means(D)
     rng = np.random.default_rng(7)
@@ -76,9 +79,11 @@ def test_sixty_generations_match_jax(variant):
     builders = {"dreamzs": (jdream.DreamConfig, dream.DreamConfig),
                 "dream": (jdream.dream_config, dream.dream_config),
                 "demcz": (jdream.demcz_config, dream.demcz_config),
-                "dreamzs_gather": (jdream.DreamConfig, dream.DreamConfig)}
+                "dreamzs_gather": (jdream.DreamConfig, dream.DreamConfig),
+                "dreamzs_accept": (jdream.DreamConfig, dream.DreamConfig)}
     jbuild, build = builders[variant]
-    kw = {"gather_kernel": True} if variant == "dreamzs_gather" else {}
+    kw = {"dreamzs_gather": {"gather_kernel": True},
+          "dreamzs_accept": {"pallas_accept": True}}.get(variant, {})
     jcfg = jbuild(n_chains=N, burnin_gens=BURNIN, pallas_proposal=True, **kw)
     cfg = build(n_chains=N, burnin_gens=BURNIN, **kw)
     assert cfg._asdict() == {**jcfg._asdict(), "pallas_proposal": None}

@@ -308,7 +308,3 @@ def test_api_gather_flag_checks():
                    p_snooker=0.0, device="cpu")
     with pytest.raises(ValueError, match="use_archive"):
         dream.make_step(lp, dream.dream_config(16, gather_kernel=True))
-    # B10 is still to port
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B"):
-        bt.DreamZs(lp, n_chains=8, pallas_accept=True, gather_kernel=True,
-                   device="cpu")
