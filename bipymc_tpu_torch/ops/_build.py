@@ -13,8 +13,8 @@ edited source is rebuilt and an unchanged one is reused.
 
 Pointers and the current CUDA stream pass as Python ints; each C entry
 point returns the launch's ``cudaError_t``, or :data:`ERR_SHARED_MEMORY`
-where it refuses the operands' shapes before launching, which
-:func:`check` turns into an exception.
+or :data:`ERR_NO_CLUSTER` where it refuses the launch before making it,
+which :func:`check` turns into an exception.
 """
 
 import ctypes
@@ -38,6 +38,10 @@ _U64 = ctypes.c_uint64
 # an entry point's refusal, before any launch: the operands' shapes need
 # more shared memory than a block may take (csrc/*.cu return it as -1)
 ERR_SHARED_MEMORY = -1
+# a cluster launch's refusal, before the launch: the occupancy query
+# (cudaOccupancyMaxActiveClusters) finds no room on the card for one
+# cluster of the planned size (csrc/chol.cu returns it as -2)
+ERR_NO_CLUSTER = -2
 # C signatures of the entry points, by source name
 SIGNATURES = {
     "distinct_idx": ("distinct_idx_launch",
@@ -57,8 +61,10 @@ SIGNATURES = {
                        _P, _P, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
-    "chol": ("chol_launch", [_P, _P, _P, _P, _I, _I, _P]),
-    "trisolve": ("trisolve_launch", [_P, _P, _P, _I, _I, _I, _L, _I, _P]),
+    "chol": ("chol_launch", [_P, _P, _I, _I, _P]),
+    "chol_coop": ("chol_coop_launch", [_P, _P, _P, _P, _I, _I, _P]),
+    "trisolve": ("trisolve_launch",
+                 [_P, _P, _P, _I, _I, _I, _L, _I, _P]),
     "gather_rows": ("gather_rows_launch",
                     [_P, _L, _L, _I, _I, _P, _I, _L, _P, _P]),
     "accept_select": ("accept_select_launch",
@@ -139,11 +145,15 @@ def library(name: str):
 
 
 def check(err: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error (``RuntimeError``) or the
-    entry point refused the shapes (``ValueError``)."""
+    """Raise if a launch reported a CUDA error or the card had no room for
+    a cluster (``RuntimeError``), or the entry point refused the shapes
+    (``ValueError``)."""
     if err == ERR_SHARED_MEMORY:
         raise ValueError(f"kernel {name}: the operands' shapes do not fit "
                          "the shared memory a block may take")
+    if err == ERR_NO_CLUSTER:
+        raise RuntimeError(f"kernel {name}: the card has no room for one "
+                           "cluster of the planned size")
     if err != 0:
         raise RuntimeError(f"CUDA launch of kernel {name} failed: "
                            f"cudaError_t {err}")

@@ -5,10 +5,14 @@ Counterpart of ``bipymc_tpu/ops/pallas_chol.py``. :func:`cholesky_pallas`
 is the kernel's wrapper: ``chol(a)`` of a float32 ``[n, n]`` matrix, or of
 a ``[C, n, n]`` batch (the reference ``vmap``s onto its grid; here the
 batch is a grid axis of the same launch), n ≤ 1024 (the reference's gate,
-``gp/regressor.py:277-279``). The kernel is
-``bipymc_tpu_torch/csrc/chol.cu``: unlike B6, which gives one matrix one
-block, it spreads each matrix's trailing updates over many blocks of one
-cooperative launch.
+``gp/regressor.py:277-279``). Unlike B6, which gives one matrix one
+block, B7 spreads each matrix over many blocks, by one of two routes that
+:func:`plan` picks from n before the launch: for n ≤ 480,
+``bipymc_tpu_torch/csrc/chol.cu``, one thread-block cluster a matrix with
+the factor in the cluster's shared memory; above, where the cluster's
+shared memory does not hold it, ``csrc/chol_coop.cu``, one cooperative
+launch with a grid barrier between panel steps, L factored in place in
+device memory.
 
 :func:`cholesky_plain` is the plain version: ``torch.linalg.cholesky_ex``
 with the whole matrix NaN where ``info`` ≠ 0, as B6's plain version does
@@ -24,12 +28,59 @@ the backward the card runs. ``cholesky_pallas.launches`` counts the
 kernel's launches.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from bipymc_tpu_torch.ops import _build
 from bipymc_tpu_torch.ops.pallas_kernels import require_full_float32
 
 MAX_N = 1024        # the reference's gate for the single-matrix kernel
+TILE = 32           # the kernels' tile and panel width
+TILE_BYTES = TILE * (TILE + 4) * 4      # a tile in shared memory (rows of 36)
+SMEM_PER_BLOCK = 232448                 # what an H100 block may take
+CLUSTER_MAX = 8                         # the portable cluster size
+CLUSTER_MAX_N = 480                     # the cluster route's largest n
+COOP_SMEM = 3 * TILE * (TILE + 1) * 4 + TILE * 4 + 4   # chol_coop.cu's static
+
+
+class Plan(NamedTuple):
+    """B7's launch for one n: the route ("cluster" or "cooperative"), the
+    CTAs of a cluster (1 on the cooperative route), the most tiles one CTA
+    holds and the shared memory of a CTA in bytes."""
+    route: str
+    cluster: int
+    own_tiles: int
+    smem: int
+
+
+def owner(i: int, p: int) -> int:
+    """The CTA of a p-CTA cluster that holds block row i: the rows dealt
+    in a snake, 0..p-1 then p-1..0, as ``csrc/chol.cu::owner``."""
+    g, r = divmod(i, p)
+    return p - 1 - r if g % 2 else r
+
+
+@functools.cache
+def plan(n: int) -> Plan:
+    """B7's route for an [n, n] matrix, a function of n alone. The
+    cluster route takes n ≤ 480: P = min(nb, 8) CTAs (nb = ⌈n/32⌉ block
+    rows), each holding its block rows' tiles of the lower triangle, two
+    slots (by the step's parity) for each panel tile the others push to
+    it, and two tiles and 64 floats for the diagonal tile's Lᵀ and
+    reciprocals; at n = 512 that would be 235 KB, more than a block may
+    take. ``csrc/chol.cu::chol_launch`` derives the cluster and the
+    shared memory itself from n, with the kernel's own ``owner``; the
+    plan's copy picks the route and lets the CPU tests check the fit."""
+    nb = -(-n // TILE)
+    if n <= CLUSTER_MAX_N:
+        p = min(nb, CLUSTER_MAX)
+        own = max(sum(i + 1 for i in range(nb) if owner(i, p) == c)
+                  for c in range(p))
+        return Plan("cluster", p, own,
+                    (own + 2 * nb + 2) * TILE_BYTES + 2 * TILE * 4)
+    return Plan("cooperative", 1, 0, COOP_SMEM)
 
 
 def _phi(x: torch.Tensor) -> torch.Tensor:
@@ -65,23 +116,36 @@ def cholesky_plain(a: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
-def _chol_kernel(a: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/chol.cu`` on a float32 CUDA [C, n, n] batch."""
+def _chol_kernel(a: torch.Tensor, route: str | None = None) -> torch.Tensor:
+    """Launch B7 on a float32 CUDA [C, n, n] batch, by :func:`plan`'s route
+    (``route="cooperative"`` forces that route at any n, to time the two
+    in turns)."""
     a = a.contiguous()
     c, n, _ = a.shape
     L = torch.empty_like(a)
-    if L.numel():
+    if not L.numel():
+        return L
+    p = plan(n)
+    route = route or p.route
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if route == "cluster" and p.route == "cluster":
+        err = _build.library("chol")(a.data_ptr(), L.data_ptr(), c, n,
+                                     stream)
+        _build.check(err, "chol")
+    elif route == "cooperative":
         # scratch of the launch's groups of blocks (at most one a matrix):
         # the solved panel, double-buffered, and the grid barrier's two
         # counters, which start at 0
         panel = torch.empty((c, 2, n, 32), dtype=torch.float32,
                             device=a.device)
         bar = torch.zeros((c, 2), dtype=torch.int32, device=a.device)
-        err = _build.library("chol")(
+        err = _build.library("chol_coop")(
             a.data_ptr(), L.data_ptr(), panel.data_ptr(), bar.data_ptr(), c,
-            n, torch.cuda.current_stream(a.device).cuda_stream)
-        _build.check(err, "chol")
-        cholesky_pallas.launches += 1
+            n, stream)
+        _build.check(err, "chol_coop")
+    else:
+        raise ValueError(f"B7 has no {route!r} route at n={n}")
+    cholesky_pallas.launches += 1
     return L
 
 

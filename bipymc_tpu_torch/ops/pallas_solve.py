@@ -11,7 +11,12 @@ composed). L is ``[n, n]`` or ``[B, n, n]``; the right-hand side is
 
 The plain versions, :func:`tri_solve_plain` and :func:`tri_solve_t_plain`,
 are ``torch.linalg.solve_triangular``. A CPU tensor takes them; a CUDA
-tensor the kernel (float32, n ≤ 4096), or the call raises.
+tensor the kernel (float32, n ≤ 4096), or the call raises. The kernel's
+entry point sizes its launch from n and m: the right-hand-side columns a
+block takes, and the tiles of L it holds in shared memory at once (all
+of the lower triangle's off-diagonal tiles up to n = 256, a ring of them
+refilled as the steps consume them above); :func:`plan` mirrors it, for
+the CPU tests of the fit.
 
 Both directions are differentiable through ``torch.autograd.Function``s
 with the reference's gradients (``:194-223``), and each direction's
@@ -21,12 +26,57 @@ L⁻¹ ȳ, L̄ = −tril(y wᵀ). On the CPU both run through the same Functions
 with the plain forward, so the CPU tests run the backward the card runs.
 """
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from bipymc_tpu_torch.ops import _build
 from bipymc_tpu_torch.ops.pallas_kernels import require_full_float32
 
-MAX_N = 4096        # the kernel keeps n x 9 floats of b in shared memory
+MAX_N = 4096        # the kernel keeps n x 8 floats of b in shared memory
+TILE = 32           # the kernel's block rows
+TILE_BYTES = TILE * (TILE + 4) * 4      # a tile in shared memory (rows of 36)
+SMEM_PER_BLOCK = 232448                 # what an H100 block may take
+WARPS = 8           # a block's warps, and its diagonal inverses at a time
+MAX_COLS = 8        # right-hand-side columns a block
+
+
+class Plan(NamedTuple):
+    """B8's launch for L [n, n] and m right-hand-side columns: the columns
+    a block takes (``cols``, a template argument of the kernel), its
+    blocks along m, the tiles of L in its shared memory at once
+    (``ring``), the tiles a step reads between refills (``chunk``), and
+    its shared memory in bytes."""
+    cols: int
+    blocks: int
+    ring: int
+    chunk: int
+    smem: int
+
+
+@functools.cache
+def plan(n: int, m: int) -> Plan:
+    """B8's launch for L [n, n] and m columns, a function of n and m, as
+    ``csrc/trisolve.cu::trisolve_launch`` derives it.
+
+    A block takes one column at m = 1 and eight otherwise (2 ≤ m < 8,
+    which no path sends, pads to eight with columns of zeros). It holds
+    its columns' n rows of b (rows of ``cols`` floats), eight diagonal
+    blocks and their inverses, the warps' partial sums and as many of the
+    lower triangle's nb(nb−1)/2 off-diagonal tiles as fit beside them,
+    each with an 8-byte mbarrier: all of them where they fit (n ≤ 256;
+    then no refill, ``chunk`` = nb), else a ring refilled half at a
+    time."""
+    nb = -(-n // TILE)
+    cols = 1 if m == 1 else MAX_COLS
+    tiles = nb * (nb - 1) // 2
+    fixed = (2 * WARPS * TILE_BYTES + nb * TILE * cols * 4
+             + WARPS * cols * TILE * 4)
+    ring = min(tiles, (SMEM_PER_BLOCK - fixed - 16) // (TILE_BYTES + 8))
+    chunk = max(nb, 1) if ring == tiles else max(ring // 2, 1)
+    smem = (ring + 1) // 2 * 16 + ring * TILE_BYTES + fixed
+    return Plan(cols, -(-m // cols), ring, chunk, smem)
 
 
 def tri_solve_plain(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -46,19 +46,25 @@ non-zero:
    alone, beside the kernel's L alone).
 2d. B5's gradient on config 5's operands against the plain version's
    autograd within ``B5_GRAD_TOL``·max|g|. B7 (``chol``) and B8
-   (``trisolve``) against their plain versions on the card: B7 on one [256, 256] matrix (config 5), at n in {4, 33,
-   200, 1000} and on [5, 130, 130] and [3, 256, 256] batches within
-   5e-6·max|L|, NaN in exactly the indefinite matrices of a batch; B8
-   in both directions at b [256] and [256, 1024] (config 5), n in {4,
-   200, 1000} with m a partial tile of 8 columns, the batched and the
-   shared-L forms, within 1e-5·max|x|. Both on config 5's own Gram
+   (``trisolve``) against their plain versions on the card: B7 on one
+   [256, 256] matrix (config 5), at n in {1, 4, 31, 32, 33, 200, 255,
+   257, 480, 481, 512, 1000, 1024} (the cluster route up to 480, the
+   cooperative one above, ``pallas_chol.plan``) and on [5, 130, 130],
+   [3, 256, 256] and [4, 256, 256] batches within 5e-6·max|L|, NaN in
+   exactly the indefinite matrices of a batch; B8 in both directions at
+   b [256] and [256, 1024] (config 5), n in {1, 4, 31, 32, 33, 200, 255,
+   256, 257, 1000, 1024, 4096} with m in {1, 7, 8, 9} (all of L's tiles
+   in shared memory up to n = 256, a ring of them above,
+   ``pallas_solve.plan``) and partial tiles of 8 columns, the batched
+   and the shared-L forms, within 1e-5·max|x|. Both on config 5's own Gram
    matrices along ``optimize``'s trajectory (after 0, 10, 30, 100 and
    300 Adam steps), held to a float64 factor (solve) within 1.5 x the
    plain version's distance; their gradients against the plain routes'
    (autograd of ``cholesky_ex`` and ``solve_triangular``); B8's backward
    must launch the other direction. Timed at config 5's shapes with
    ``torch.linalg.cholesky_ex`` / ``solve_triangular`` as the library
-   calls, and B7 beside B6's kernel on the same one matrix. B2 and B3
+   calls, B7 beside B6's kernel on the same one matrix, and B7's cluster
+   route beside its cooperative route at [256, 256] in turns. B2 and B3
    are also held at config 5's 1,024 × 2 (phase 2).
 2e. B1 (``fused_chunk``) against its plain version on the card: at
    config 3's own shapes, [G, n, k, d] = [10, 256, 6, 100], on the
@@ -195,8 +201,9 @@ non-zero:
    1e-2 of the port's own CPU ``optimize``; the posterior mean within
    0.1 of θ = (1.2, −0.7). Then ``optimize``'s wall with the library
    route between two with the kernels, the device's busy share of an
-   Adam step and of a DREAM generation, and 200 generations of the
-   "lcb" surrogate, B8 once a generation.
+   Adam step (with B7's and B8's device µs a step) and of a DREAM
+   generation, and 200 generations of the "lcb" surrogate, B8 once a
+   generation.
 9. The stretch workload of ``benchmarks/profile_stretch_fused.py:30-47``
    through ``EnsembleSampler(fused=True)``: 256 walkers in d = 16 on
    N(0, diag(scales²)), scales = linspace(0.5, 3, 16), from x0 = N(0,
@@ -2146,13 +2153,18 @@ def check_b5_grad(dev):
 
 def check_b7(dev):
     from bipymc_tpu_torch.ops.pallas_bchol import cholesky_batched
-    from bipymc_tpu_torch.ops.pallas_chol import (cholesky_pallas,
-                                                  cholesky_plain)
+    from bipymc_tpu_torch.ops.pallas_chol import (CLUSTER_MAX_N, _chol_kernel,
+                                                  cholesky_pallas,
+                                                  cholesky_plain, plan)
 
-    # SPD cases (x xᵀ/24 + 3I): one matrix at config 5's n and at edges,
-    # a batch, and a batch with two indefinite matrices
+    # SPD cases (x xᵀ/24 + 3I): one matrix at config 5's n and at edges
+    # (a tile, one past it, the cluster route's last n and the cooperative
+    # route's first), batches of several clusters, and a batch with two
+    # indefinite matrices
     cases = [(None, C5_N), (None, 4), (None, 33), (None, 200), (None, 1000),
-             (5, 130), (3, 256)]
+             (5, 130), (3, 256), (None, 1), (None, 31), (None, 32),
+             (None, 255), (None, 257), (None, 480), (None, 481),
+             (None, 512), (None, 1024), (4, 256)]
     errs = {}
     for i, (b, n) in enumerate(cases):
         a, _ = spd_batch(b or 1, n, seed=40 + i, dev=dev)
@@ -2221,11 +2233,25 @@ def check_b7(dev):
     b6_ms = device_ms(lambda: cholesky_batched(a1[None]))
     log(f"B7 against B6's kernel on the same one matrix (b = 1), device "
         f"ms: B7 {times[0]:.6f}, B6 {b6_ms:.6f}")
+    # the two routes on the same matrix in turns (cluster, cooperative,
+    # cooperative, cluster), device ms
+    coop = lambda: _chol_kernel(a1[None], "cooperative")
+    turns = [device_ms(f) for f in (kernel, coop, coop, kernel)]
+    log("B7 at [256, 256] in turns, device ms (cluster, cooperative, "
+        "cooperative, cluster):", json.dumps(turns))
     n = C5_N
+    p = plan(n)
     rec = kernel_record(
         "chol", "bipymc_tpu_torch/csrc/chol.cu",
         "bipymc_tpu/ops/pallas_chol.py:188", errs[(None, C5_N)], times,
         4 * 2 * n * n, n ** 3 // 3 * 2, library_ms=device_ms(library))
+    rec["design"] = (f"{p.route}: one cluster of {p.cluster} CTAs a "
+                     f"matrix, the factor in shared memory "
+                     f"({p.smem} B a CTA), one cluster barrier a panel "
+                     f"step; csrc/chol_coop.cu (cooperative, grid barrier "
+                     f"in global memory) above n = {CLUSTER_MAX_N}")
+    rec["turns_ms"] = {"cluster": [turns[0], turns[3]],
+                       "cooperative": [turns[1], turns[2]]}
     rec["b6_one_matrix_ms"] = b6_ms
     rec["gram_readings"] = readings
     return rec
@@ -2233,7 +2259,8 @@ def check_b7(dev):
 
 def check_b8(dev):
     from bipymc_tpu_torch.ops.pallas_chol import cholesky_plain
-    from bipymc_tpu_torch.ops.pallas_solve import (solve_chol, tri_solve,
+    from bipymc_tpu_torch.ops.pallas_solve import (plan, solve_chol,
+                                                   tri_solve,
                                                    tri_solve_plain,
                                                    tri_solve_t,
                                                    tri_solve_t_plain)
@@ -2256,6 +2283,15 @@ def check_b8(dev):
              (None, 200, (200, 130)), (None, 1000, (1000,)),
              (None, 1000, (1000, 17)), (3, 96, (3, 96)),
              (3, 96, (3, 96, 5)), (None, 70, (4, 70, 3))]
+    # n at a tile's edges, at the last n whose tiles all fit in shared
+    # memory (256) and past it, and at the largest; m at the columns a
+    # block takes (1..8) and past them; then a batched L and a shared L
+    for n in (1, 31, 32, 33, 255, 256, 257, 1024, 4096):
+        cases += [(None, n, (n,)), (None, n, (n, 7)), (None, n, (n, 8)),
+                  (None, n, (n, 9))]
+    for m in (1, 7, 8, 9):
+        cases += [(3, C5_N, (3, C5_N, m)), (None, C5_N, (4, C5_N, m))]
+    cases.append((3, C5_N, (3, C5_N)))
     errs = {}
     for i, (b, n, shape) in enumerate(cases):
         L, y = factor(b, n, seed=60 + i), rhs(*shape)
@@ -2348,6 +2384,13 @@ def check_b8(dev):
     rec["lcb_shape"]["max_abs_err"] = errs[(None, C5_N, (C5_N, m),
                                             "tri_solve")]
     rec["f64_readings"] = readings
+    p1, pw = plan(n, 1), plan(n, m)
+    rec["design"] = (f"L's {p1.ring} off-diagonal tiles copied into shared "
+                     f"memory (cp.async, an mbarrier a tile) at the start, "
+                     f"the diagonal blocks inverted up front, x_i = D⁻¹r_i "
+                     f"plus one refinement step; {p1.cols} column a block "
+                     f"at b [256] ({p1.smem} B), {pw.cols} a block, "
+                     f"{pw.blocks} blocks at [256, 1024]")
     return rec
 
 
@@ -2476,10 +2519,21 @@ def config5_path(dev):
     wall_us = (time.perf_counter() - t0) / 20 * 1e6
     rows = device_times(adam, 1)
     busy_us = sum(us for us, _ in rows.values()) / 20
+
+    def kernel_us(*names):
+        # by the demangled name, whole: "chol_kernel" alone is also in
+        # B6's "bchol_kernel"
+        keys = [f"(anonymous namespace)::{name}{end}" for name in names
+                for end in "(<"]
+        return sum(us for key, (us, _) in rows.items()
+                   if any(k in key for k in keys)) / 20
+
     log("device, Adam step:", json.dumps({
         "wall_us_per_step": wall_us, "busy_us_per_step": busy_us,
         "busy_share": busy_us / wall_us,
-        "kernels_per_step": sum(c for _, c in rows.values()) / 20}))
+        "kernels_per_step": sum(c for _, c in rows.values()) / 20,
+        "b7_us_per_step": kernel_us("chol_kernel", "chol_coop_kernel"),
+        "b8_us_per_step": kernel_us("trisolve_kernel")}))
     for key, (us, count) in sorted(rows.items(),
                                    key=lambda r: -r[1][0])[:12]:
         log(f"  {us / 20:8.3f} us/step {count / 20:6.1f}/step  {key[:100]}")

@@ -13,6 +13,15 @@ float32 factorisations, or substitutions, summing in other orders);
 adjoints on the same (L, L̄) within rtol 1e-4 (the same formula, two
 libraries' triangular solves); θ-gradients through a GP-shaped loss
 within rtol 2e-3 / atol 2e-4, the bound of tests/test_pallas_chol.py.
+
+The kernels' launch plans (``pallas_chol.plan``, ``pallas_solve.plan``)
+are pure functions of the shapes: they are checked here for every n the
+wrappers take against the card's limits (232,448 bytes of shared memory
+a block, 8 CTAs a portable cluster). B8's arithmetic (per-tile sums, the
+diagonal blocks' inverses and one refinement step) is emulated in
+float32 here, each FMA rounded once, and held on config 5's factors to
+the float64 rule of chip_smoke.py's phase 2d: within 1.5 x the plain
+version's distance from a float64 solve, plus 1e-6.
 """
 
 import jax
@@ -264,3 +273,176 @@ def test_b6_vjp_matches_jax_vjp():
     pallas_bchol.cholesky_batched(at2).backward(torch.from_numpy(lbar))
     np.testing.assert_allclose(at2.grad.numpy(), np.asarray(abar_l),
                                rtol=1e-4, atol=1e-4 * scale)
+
+
+# ---------------------------------------------------------------- plans
+@pytest.mark.parametrize("lo", range(1, 1025, 128))
+def test_b7_plan_fits_the_card(lo):
+    """Every n the wrapper takes: the cluster route up to n = 480 with a
+    portable cluster of min(nb, 8) CTAs, the rows dealt so that each CTA
+    holds its plan's tiles at most, within a block's shared memory; the
+    cooperative route above."""
+    for n in range(lo, lo + 128):
+        p = pallas_chol.plan(n)
+        nb = -(-n // 32)
+        assert p.smem <= pallas_chol.SMEM_PER_BLOCK
+        assert 1 <= p.cluster <= 16
+        if n > pallas_chol.CLUSTER_MAX_N:
+            assert p == pallas_chol.Plan("cooperative", 1, 0,
+                                         pallas_chol.COOP_SMEM)
+            continue
+        assert p.route == "cluster" and p.cluster == min(nb, 8)
+        rows = [[i for i in range(nb) if pallas_chol.owner(i, p.cluster) == c]
+                for c in range(p.cluster)]
+        assert sorted(sum(rows, [])) == list(range(nb))
+        tiles = [sum(i + 1 for i in r) for r in rows]
+        assert max(tiles) == p.own_tiles and min(tiles) >= 1
+        # own rows, two panel slots a block row, L_kk^T twice, 1/diag twice
+        assert p.smem == ((p.own_tiles + 2 * nb + 2) * pallas_chol.TILE_BYTES
+                          + 2 * 32 * 4)
+    # one past the cluster route would not fit
+    nb, c = 16, 8
+    own = max(sum(i + 1 for i in range(nb) if pallas_chol.owner(i, c) == r)
+              for r in range(c))
+    assert ((own + 2 * nb + 2) * pallas_chol.TILE_BYTES + 256
+            > pallas_chol.SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 1024])
+def test_b8_plan_fits_the_card(m):
+    """For n up to 4096: a block takes 1 column at m = 1, else 8 (the
+    kernel's two instances), enough blocks cover m, its shared memory
+    fits, all of L's off-diagonal tiles stay in it up to n = 256, and
+    above a ring of at least 2 is refilled half at a time."""
+    for n in list(range(1, 600)) + list(range(600, 4097, 37)) + [4096]:
+        p = pallas_solve.plan(n, m)
+        nb = -(-n // 32)
+        tiles = nb * (nb - 1) // 2
+        assert p.cols == (1 if m == 1 else 8) and \
+            p.blocks == -(-m // p.cols)
+        assert p.smem <= pallas_solve.SMEM_PER_BLOCK
+        assert p.smem == ((p.ring + 1) // 2 * 16
+                          + p.ring * pallas_solve.TILE_BYTES
+                          + 2 * 8 * pallas_solve.TILE_BYTES
+                          + nb * 32 * p.cols * 4 + 8 * p.cols * 32 * 4)
+        if n <= 256:
+            assert p.ring == tiles and p.chunk >= nb - 1
+        else:
+            assert 2 <= p.ring < tiles and 1 <= p.chunk <= p.ring // 2
+
+
+# ------------------------------------------- B8's arithmetic, emulated
+def _fma(a, b, c):
+    """fmaf in float32: the product and sum exact in float64, rounded
+    once (a float32 product has 48 bits)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _diag_inverse(d):
+    """csrc/trisolve.cu::invert_diag on [k, 32, 32] lower blocks: y = I,
+    then for each q, row q scaled by the IEEE reciprocal of the pivot and
+    subtracted from the rows below it, one FMA each."""
+    y = torch.eye(32).repeat(d.shape[0], 1, 1)
+    rinv = 1.0 / torch.diagonal(d, dim1=-2, dim2=-1)
+    for q in range(32):
+        y[:, q] = y[:, q] * rinv[:, q, None]
+        for r in range(q + 1, 32):
+            y[:, r] = _fma(-d[:, r, q, None], y[:, q], y[:, r])
+    return y
+
+
+def _matvec(m, v):
+    """csrc/trisolve.cu::matvec: sum_q m[:, q] v[q] in four sums by q mod
+    4, added pairwise."""
+    y = torch.zeros(4, 32, v.shape[1])
+    for q in range(32):
+        y[q % 4] = _fma(m[:, q, None], v[q][None, :], y[q % 4])
+    return (y[0] + y[1]) + (y[2] + y[3])
+
+
+def _b8_emulated(L, b, transposed):
+    """B8's float32 arithmetic for L [n, n] (n a multiple of 32 here) and
+    b [n, m]: step i sums each tile of its block row (or column) over its
+    32 columns in order, warp w taking the tiles w, w + 8, ..., the block
+    then subtracts the eight warps' sums in order, and x_i = D⁻¹ r_i is
+    refined once, x_i += D⁻¹(r_i − D x_i)."""
+    nb = L.shape[0] // 32
+    X = b.clone()
+
+    def tile(i, j):
+        return L[i * 32:(i + 1) * 32, j * 32:(j + 1) * 32]
+
+    dinv = _diag_inverse(torch.stack([tile(i, i) for i in range(nb)]))
+    for i in (range(nb - 1, -1, -1) if transposed else range(nb)):
+        part = torch.zeros(8, 32, X.shape[1])
+        js = range(i + 1, nb) if transposed else range(i)
+        for u, j in enumerate(js):
+            t = tile(j, i).T if transposed else tile(i, j)
+            acc = torch.zeros(32, X.shape[1])
+            for q in range(32):
+                acc = _fma(t[:, q, None], X[j * 32 + q][None, :], acc)
+            part[u % 8] = part[u % 8] + acc
+        r = X[i * 32:(i + 1) * 32].clone()
+        for w in range(8):
+            r = r - part[w]
+        d, di = tile(i, i), dinv[i]
+        if transposed:
+            d, di = d.T, di.T
+        x = _matvec(di, r)
+        x = x + _matvec(di, r - _matvec(d, x))
+        X[i * 32:(i + 1) * 32] = x
+    return X
+
+
+def _config5_factors():
+    """Config 5's Gram matrices along optimize's trajectory (after 0, 10,
+    30, 100 and 300 Adam steps), as chip_smoke.py's phase 2d makes them
+    on the card, here on the CPU; their float32 factors and the
+    standardised scores."""
+    import bipymc_tpu_torch as bt
+
+    rng = np.random.default_rng(11)
+    t_grid = np.linspace(0, 1, 8)
+
+    def fwd(th):
+        return th[0] * np.exp(-2 * t_grid) + th[1] * t_grid ** 2
+
+    y_obs = fwd(np.array([1.2, -0.7], np.float32)) + rng.normal(0, 0.05, 8)
+    x = rng.uniform(-2, 2, (256, 2)).astype(np.float32)
+    y = np.array([-0.5 * float((fwd(t) - y_obs) @ (fwd(t) - y_obs)) / 0.05 ** 2
+                  for t in x], dtype=np.float32)
+    gp = bt.GpRegressor(normalize_y=True, device="cpu")
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    grams = [gp._gram(bt.gp.default_params(2, device="cpu") if k == 0 else
+                      gp.optimize(x, y, steps=k)[0], xt)
+             for k in (0, 10, 30, 100, 300)]
+    return torch.linalg.cholesky(torch.stack(grams)), gp._normalize(yt)[0]
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_b8_arithmetic_meets_the_float64_rule(transposed):
+    # a solve: on a well-conditioned factor within the card test's bound
+    # of the plain version
+    Lw = torch.from_numpy(_chol(256, seed=3))
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (256, 3)).astype(np.float32))
+    ref = (pallas_solve.tri_solve_t if transposed else
+           pallas_solve.tri_solve)(Lw, b)
+    np.testing.assert_allclose(_b8_emulated(Lw, b, transposed).numpy(),
+                               ref.numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    # config 5's factors (cond up to 8.3e5): no further from float64 than
+    # the rule lets the kernel stand
+    L, y = _config5_factors()
+    worst_k = worst_p = 0.0
+    for Lk in L:
+        M = Lk.T if transposed else Lk
+        x64 = torch.linalg.solve_triangular(M.double(), y.double()[:, None],
+                                            upper=transposed)[:, 0]
+        xk = _b8_emulated(Lk, y[:, None], transposed)[:, 0]
+        xp = torch.linalg.solve_triangular(M, y[:, None],
+                                           upper=transposed)[:, 0]
+        scale = float(x64.abs().max())
+        worst_k = max(worst_k, float((xk.double() - x64).abs().max()) / scale)
+        worst_p = max(worst_p, float((xp.double() - x64).abs().max()) / scale)
+    assert worst_k <= 1.5 * worst_p + 1e-6, (worst_k, worst_p)

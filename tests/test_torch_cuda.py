@@ -747,9 +747,15 @@ def test_b5_b6_gradients_match_plain_routes(cuda):
     assert _rel(out[0][1], out[1][1]) <= 1e-4
 
 
+# n at a tile's edges, at the cluster route's last n (480) and the
+# cooperative route's first, 512, 1000, 1024; batches of several clusters
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(None, 256), (None, 4), (None, 33),
-                                 (None, 200), (None, 1000), (5, 130)])
+                                 (None, 200), (None, 1000), (5, 130),
+                                 (None, 1), (None, 31), (None, 32),
+                                 (None, 255), (None, 257), (None, 480),
+                                 (None, 481), (None, 512), (None, 1024),
+                                 (4, 256), (3, 300)])
 def test_b7_kernel_matches_plain(cuda, b, n):
     a, _ = (v.to(cuda) for v in _spd(b or 1, n, seed=n))
     a = a if b else a[0]
@@ -761,6 +767,23 @@ def test_b7_kernel_matches_plain(cuda, b, n):
     torch.testing.assert_close(L, ref, rtol=0,
                                atol=5e-6 * float(ref.abs().max()))
     assert bool(torch.all(torch.triu(L, 1) == 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 130])
+def test_b7_cooperative_route_matches_plain(cuda, n):
+    """The cooperative kernel, the route above n = 480, forced at n <= 480
+    (as chip_smoke.py times it beside the cluster route)."""
+    from bipymc_tpu_torch.ops.pallas_chol import _chol_kernel
+
+    a, _ = (v.to(cuda) for v in _spd(2, n, seed=n))
+    L = _chol_kernel(a, "cooperative")
+    torch.cuda.synchronize()
+    ref = cholesky_plain(a)
+    torch.testing.assert_close(L, ref, rtol=0,
+                               atol=5e-6 * float(ref.abs().max()))
+    with pytest.raises(ValueError, match="no 'cluster' route"):
+        _chol_kernel(_spd(1, 481, seed=1)[0].to(cuda), "cluster")
 
 
 @pytest.mark.cuda
@@ -780,11 +803,21 @@ def test_b7_non_pd_and_gradient(cuda):
     assert _rel(*grads) <= 1e-4
 
 
+# n at a tile's edges, at the last n whose tiles all stay in shared
+# memory (256) and past it, 1024 and the largest, 4096; m at the columns
+# a block takes and past them; a batched and a shared L at each m
+_B8_EDGES = [(None, n, (n,) + m) for n in (1, 31, 32, 33, 255, 256, 257,
+                                          1024, 4096)
+             for m in ((), (7,), (8,), (9,))]
+_B8_EDGES += [(3, 256, (3, 256, m)) for m in (1, 7, 8, 9)]
+_B8_EDGES += [(None, 256, (4, 256, m)) for m in (1, 7, 8, 9)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,shape", [
     (None, 256, (256,)), (None, 256, (256, 1024)), (None, 4, (4, 9)),
     (None, 200, (200, 130)), (None, 1000, (1000, 17)), (3, 96, (3, 96)),
-    (3, 96, (3, 96, 5)), (None, 70, (4, 70, 3))])
+    (3, 96, (3, 96, 5)), (None, 70, (4, 70, 3))] + _B8_EDGES)
 def test_b8_kernel_matches_plain(cuda, b, n, shape):
     a, _ = _spd(b or 1, n, seed=n)
     L = cholesky_plain(a.to(cuda))
