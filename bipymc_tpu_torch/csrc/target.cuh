@@ -10,9 +10,10 @@
 //   1 isotropic Gaussian mixture: per-mode squared distances, then
 //     torch.logsumexp's max-shifted sum of (log_w + norm) - 0.5 sq / s^2.
 // The Python wrappers raise for any other target. eval_target spends a
-// whole block on one point (B1, B4); eval_target_group spends an aligned
-// group of L lanes of a warp on one point, so one block evaluates many
-// points at once (B9).
+// whole block on one point (B1, B4); B9 (fused_stretch.cu::eval_group)
+// spends an aligned group of lanes on one point with the same sums, from
+// load_target's layout but for the Gaussian's inverse, which it keeps
+// transposed.
 
 #pragma once
 
@@ -120,60 +121,6 @@ __device__ inline float eval_target(const Target& tg, const float* y,
     }
   }
   block_sum<kMaxModes>(sq, tg.k, scratch);
-  return mixture_lse(tg, sq);
-}
-
-// The lanes of the aligned group of L lanes (L a power of two, at most 32)
-// that holds this thread.
-__device__ __forceinline__ unsigned group_mask(int L) {
-  if (L == 32) return kFull;
-  const unsigned lane = threadIdx.x & 31;
-  return ((1u << L) - 1u) << (lane & ~static_cast<unsigned>(L - 1));
-}
-
-// Sum over the group; a butterfly of commutative adds, so every lane of
-// the group gets the same total bit for bit.
-__device__ __forceinline__ float group_sum(float v, int L, unsigned mask) {
-  for (int off = L >> 1; off > 0; off >>= 1)
-    v += __shfl_xor_sync(mask, v, off);
-  return v;
-}
-
-// log density of y ([d], shared, written by the group before the call),
-// evaluated by one group of L lanes; r is the group's own [d] shared
-// scratch. Every lane of the group returns the same value.
-__device__ inline float eval_target_group(const Target& tg, const float* y,
-                                          float* r, int d, int L,
-                                          unsigned mask) {
-  const int gl = threadIdx.x & (L - 1);
-  if (tg.kind == 0) {
-    for (int j = gl; j < d; j += L) r[j] = y[j] - tg.mu[j];
-    __syncwarp(mask);
-    float q = 0.f;
-    for (int i = gl; i < d; i += L) {
-      float s = 0.f;
-      for (int j = 0; j < d; ++j) s += r[j] * tg.c[j * d + i];
-      q += s * r[i];
-    }
-    q = group_sum(q, L, mask);
-    return -0.5f * ((q + tg.f0) + tg.f1);
-  }
-  float sq[kMaxModes];
-#pragma unroll
-  for (int m = 0; m < kMaxModes; ++m) sq[m] = 0.f;
-  for (int j = gl; j < d; j += L) {
-    const float yj = y[j];
-#pragma unroll
-    for (int m = 0; m < kMaxModes; ++m) {
-      if (m < tg.k) {
-        const float diff = yj - tg.c[m * d + j];
-        sq[m] += diff * diff;
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kMaxModes; ++m)
-    if (m < tg.k) sq[m] = group_sum(sq[m], L, mask);
   return mixture_lse(tg, sq);
 }
 

@@ -21,7 +21,15 @@ plain version, which takes any batched target; a CUDA tensor goes to
 ``csrc/fused_stretch.cu``, which evaluates the built-in targets' kernel
 forms (``models/targets.py``, ``csrc/target.cuh``), or the call raises.
 ``fused_stretch.launches`` counts the kernel's launches.
+
+The kernel has two routes: the population in shared memory for the whole
+launch where it fits, else in ``x_hist`` itself (global memory). The
+entry point chooses; :func:`plan` mirrors its choice, for the CPU tests
+and for printing, and ``fused_stretch.last_plan`` is what the last launch
+chose.
 """
+
+import ctypes
 
 import torch
 
@@ -32,6 +40,60 @@ from bipymc_tpu_torch.ops import _build
 # There it bounds the kernel's one-hot n² partner gather; here the gather
 # is a direct index and the cap is kept as the contract only (ROADMAP A16).
 MAX_WALKERS = 1024
+
+
+# The H100's shared memory a block may opt in to, bytes (the entry point
+# reads the card's own figure)
+MAX_SHARED_BYTES = 232_448
+ROUTES = ("shared", "global")
+_THREADS = 1024
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None):
+    """The launch ``csrc/fused_stretch.cu::fused_stretch_plan`` makes for
+    n walkers in d dimensions on target ``kind`` (0 the correlated
+    Gaussian, 1 the mixture of ``n_modes``): ``(route, L, threads, shared
+    bytes)``, route ``"shared"`` (the population in shared memory) or
+    ``"global"`` (in ``x_hist``), L the lanes a walker; None where the
+    route asked for (``route=None``: the shared one where it fits, else
+    the global one) does not fit :data:`MAX_SHARED_BYTES`."""
+    half = n // 2
+    # the register instance: the Gaussian at d <= 16, 4 lanes a walker
+    reg = kind == 0 and d <= 16 and 4 * half <= _THREADS // 2
+    L = 1
+    while L < d and L < 32:
+        L *= 2
+    while L > 1 and L * half > _THREADS:
+        L //= 2
+    if reg:
+        L = 4
+    ldc = _round_up(max(d, 16), 4)
+    if ldc % 8 == 0:
+        ldc += 4
+    ld = _round_up(d, L)
+    if ld // L % 2 == 0:
+        ld += L
+    n_const = _round_up(d * ldc + ldc if kind == 0 else n_modes * d, 4)
+    r_per_group = ldc if kind == 0 else 0
+    fixed = n_const + 6 * _round_up(n, 4)
+    state = n * ld + _round_up(n, 4)
+    cap = MAX_SHARED_BYTES // 4
+    if fixed + r_per_group > cap:
+        return None
+    groups = min(half, _THREADS // L)
+    shared_fits = fixed + groups * r_per_group + state <= cap
+    if route == "shared" and not shared_fits:
+        return None
+    chosen = "global" if route == "global" or not shared_fits else "shared"
+    if chosen == "global" and r_per_group:
+        groups = min(groups, (cap - fixed) // r_per_group)
+    smem = 4 * (fixed + _round_up(groups * r_per_group, 4)
+                + (state if chosen == "shared" else 0))
+    return chosen, L, _round_up(groups * L, 32), smem
 
 
 def check_walkers(n: int) -> None:
@@ -101,7 +163,7 @@ def fused_stretch_plain(x0, logp0, j, z, log_u, log_prob, half):
     return torch.stack(xs), torch.stack(lps), torch.stack(accs)
 
 
-def fused_stretch(x0, logp0, j, z, log_u, log_prob, half):
+def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None):
     """Advance G stretch generations (2G half-updates) in one launch.
 
     x0 [n, d]; logp0 [n]; j [G, n] int32 partner rows (rows < half point
@@ -110,7 +172,13 @@ def fused_stretch(x0, logp0, j, z, log_u, log_prob, half):
     either half-update accepted). On the card every float operand is
     float32, ``log_prob`` must carry a kernel form, and its constants must
     fit the kernel's shared memory (``ValueError`` otherwise).
+    ``route="shared"`` or ``"global"`` forces the kernel's route, for the
+    checks that hold the two routes together; a forced route that does
+    not fit raises ``ValueError``. The samplers never pass it.
     """
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route={route!r}: expected None or one of "
+                         f"{ROUTES}")
     if x0.device.type == "cpu":
         return fused_stretch_plain(x0, logp0, j, z, log_u, log_prob, half)
     _check_shapes(x0, logp0, j, z, log_u, half)
@@ -135,17 +203,21 @@ def fused_stretch(x0, logp0, j, z, log_u, log_prob, half):
     x_hist = torch.empty((G, n, d), dtype=torch.float32, device=dev)
     lp_hist = torch.empty((G, n), dtype=torch.float32, device=dev)
     acc_hist = torch.empty((G, n), dtype=torch.bool, device=dev)
+    chosen = (ctypes.c_int * 4)()
     err = _build.library("fused_stretch")(
         x0.data_ptr(), logp0.data_ptr(), j.data_ptr(), z.data_ptr(),
         log_u.data_ptr(), G, n, d, kind, c0.data_ptr(), c1.data_ptr(),
         n_modes, f0, f1, x_hist.data_ptr(), lp_hist.data_ptr(),
-        acc_hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        acc_hist.data_ptr(), -1 if route is None else ROUTES.index(route),
+        ctypes.addressof(chosen), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_stretch")
+    fused_stretch.last_plan = (ROUTES[chosen[0]], *chosen[1:])
     fused_stretch.launches += 1
     return x_hist, lp_hist, acc_hist
 
 
 fused_stretch.launches = 0
+fused_stretch.last_plan = None
 
 
 def _check_shapes(x0, logp0, j, z, log_u, half):

@@ -31,8 +31,11 @@ non-zero:
 2c. B5 (``sqdist``) and B6 (``bchol``: ``cholesky_batched`` and
    ``cholesky_solve_batched``) against their plain versions on the card:
    B5 at config 4's [64, 512, 2] x [64, 512, 2], at config 5's [256, 2]
-   x [256, 2] and [256, 2] x [1024, 2] and at odd shapes within atol
-   1e-3; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
+   x [256, 2] and [256, 2] x [1024, 2] and at odd shapes (m % 4 in {1,
+   2, 3}, whose rows take scalar stores; k = 8, its last register
+   instance, and k = 9) within atol 1e-3, NaN in the same places, config
+   5's readings within ``C5_GRAM_TOL``, and timed at config 5's shapes
+   too; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
    (5, 200), (12, 256), (8, 1000)}, L within atol 5e-6·max|L| and z
    within atol 1e-5·max|z|, L bit-equal between the two entry points, and
    a batch with a matrix that is not positive definite: NaN in the same
@@ -107,12 +110,16 @@ non-zero:
    stretch path's own shape, [G, n, d] = [64, 256, 16] on its target
    with its start and its first chunk's words, and at (G, n, d) in {(64,
    32, 16), (7, 2, 1), (5, 18, 3) on the mixture, (8, 1024, 16) (the
-   API's cap), (4, 256, 100) on config 3's mixture}, and with infinite
-   stretch factors, whose proposals both versions must reject. Accept
-   bits equal, except a bit the plain version puts within 1e-4 of its
-   threshold (then, as the walkers interact, every later generation is
-   left out); x and logp within ``B9_TOL``. Timed at the stretch path's
-   shape.
+   API's cap), (4, 256, 100) and (4, 1024, 100) on config 3's mixture},
+   and with infinite stretch factors, whose proposals both versions must
+   reject. Accept bits equal, except a bit the plain version puts within
+   1e-4 of its threshold (then, as the walkers interact, every later
+   generation is left out); x and logp within ``B9_TOL``. Each case
+   prints the route it took: the main shape must take the shared route
+   and (4, 1024, 100) the global one. At the main shape the global route
+   forced must give the shared route's outputs bit for bit; the two
+   routes are timed in turns (shared, global, global, shared), and the
+   default route at the stretch path's shape.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -185,9 +192,10 @@ non-zero:
    1 + 2 x 2,000 times in the first run and 2 x 2,000 in the timed one;
    every final logp must be finite, and the card's log-ML at 4 of the
    final θ must be within rtol 1e-4 of a float64 NumPy log-ML. Then 50
-   steps timed alone and under the profiler. (Config 4's target is
-   ``gp._lml_impl``, as in ``benchmarks/run_all.py``; the public log-ML
-   is grad-safe and skips B6.)
+   steps timed alone and under the profiler, with B5's µs a step.
+   (Config 4's target is ``gp._lml_impl``, as in
+   ``benchmarks/run_all.py``; the public log-ML is grad-safe and skips
+   B6.)
 8. BASELINE config 5 at full width as ``benchmarks/run_all.py:437-482``
    runs it, with ``pallas_chol=True, pallas_solve=True``: ``optimize``
    (300 Adam steps on 256 design points), ``fit``, the "mean"
@@ -201,7 +209,7 @@ non-zero:
    1e-2 of the port's own CPU ``optimize``; the posterior mean within
    0.1 of θ = (1.2, −0.7). Then ``optimize``'s wall with the library
    route between two with the kernels, the device's busy share of an
-   Adam step (with B7's and B8's device µs a step) and of a DREAM
+   Adam step (with B5's, B7's and B8's device µs a step) and of a DREAM
    generation, and 200 generations of the "lcb" surrogate, B8 once a
    generation.
 9. The stretch workload of ``benchmarks/profile_stretch_fused.py:30-47``
@@ -215,7 +223,8 @@ non-zero:
    ``fused=False`` for 2,000 generations from the same start and seed:
    the fused run's decisions (the rule of phase 2f), and bit-equal
    positions until a decision differs. Both engines' gens/s and ESS/s;
-   100 generations and 20 chunks timed alone and under the profiler; the
+   100 generations and 20 chunks timed alone and under the profiler (B9's
+   µs a chunk); the
    R̂ stop to 1.1 on
    both engines (warm call, ``reset()``, timed call), which must stop at
    the same generation, B9 launching twice a 100-generation chunk on the
@@ -786,7 +795,7 @@ def b9_random_operands(G, n, d, seed, dev):
 def b9_compare(lp, x0, j, z, log_u, label):
     """B9 against its plain version on one operand set; returns the
     excused bits, max |dx| and max |dlogp| over the comparable entries,
-    and the kernel's outputs."""
+    the kernel's outputs and the route it took."""
     from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
                                                     fused_stretch_plain)
     from bipymc_tpu_torch.testing import (match_stretch_decisions,
@@ -795,6 +804,7 @@ def b9_compare(lp, x0, j, z, log_u, label):
     half = x0.shape[0] // 2
     lp0 = lp(x0)
     out = fused_stretch(x0, lp0, j, z, log_u, lp, half)
+    route = fused_stretch.last_plan[0]
     ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, half)
     ref_la = stretch_log_alpha(x0, lp0, j, z, log_u, lp)
     torch.cuda.synchronize()
@@ -810,7 +820,7 @@ def b9_compare(lp, x0, j, z, log_u, label):
                 f"B9 differs from its plain version ({label}): max "
                 f"|d{key}| {float((a - b).abs().max()):.3g}")
         errs.append(float((a - b).abs().max()))
-    return excused, errs[0], errs[1], out
+    return excused, errs[0], errs[1], out, route
 
 
 def b9_work(G, n, d, kind, n_modes=0):
@@ -859,6 +869,8 @@ def check_b9(dev):
              case("G=8 n=1024 d=16 gaussian (the cap)", lp, 8, 1024, ST_D,
                   4, x_big),
              case("G=4 n=256 d=100 config-3 mixture", c3_lp, 4, 256, D, 5),
+             case("G=4 n=1024 d=100 config-3 mixture", c3_lp, 4, 1024, D,
+                  7),
              case("G=6 n=16 d=4 gaussian, non-finite",
                   b4_target("gaussian", 4), 6, 16, 4, 6)]
     # an infinite stretch factor makes x* infinite, so its target value is
@@ -870,27 +882,46 @@ def check_b9(dev):
         if not (tgt(x).isfinite().all()):
             raise AssertionError(f"B9 case {label}: a start logp is not "
                                  "finite")
-        e_bits, e_x, e_l, out = b9_compare(tgt, x, *ops, label)
+        e_bits, e_x, e_l, out, route = b9_compare(tgt, x, *ops, label)
         if "non-finite" in label and (bool(out[2][1, 0])
                                       or bool(out[2][3, 15])):
             raise AssertionError("B9 accepted a non-finite proposal")
-        readings[label] = {"excused_bits": e_bits, "max_abs_dx": e_x,
-                           "max_abs_dlogp": e_l,
+        readings[label] = {"route": route, "excused_bits": e_bits,
+                           "max_abs_dx": e_x, "max_abs_dlogp": e_l,
                            "acceptance": float(out[2].float().mean())}
     log(f"B9 fused_stretch: against the plain version, limits "
         f"{json.dumps(B9_TOL)}:", json.dumps(readings))
+    routes = {r["route"] for r in readings.values()}
+    if routes != {"shared", "global"} or \
+            readings[cases[0][0]]["route"] != "shared":
+        raise AssertionError(f"B9's routes in phase 2f: {readings}")
 
+    # the global route forced at the main shape: the same outputs bit for
+    # bit (the same per-walker code, the same lanes a walker)
     lp0 = lp(x0)
-    kernel = lambda: fused_stretch(x0, lp0, *main_ops, lp, ST_N // 2)
+    run = lambda route=None: fused_stretch(x0, lp0, *main_ops, lp,
+                                           ST_N // 2, route=route)
+    shared_out, global_out = run(), run("global")
+    if fused_stretch.last_plan[0] != "global" or not all(
+            torch.equal(a, b) for a, b in zip(shared_out, global_out)):
+        raise AssertionError("B9's two routes differ at the main shape")
     plain = lambda: fused_stretch_plain(x0, lp0, *main_ops, lp, ST_N // 2)
-    times = (device_ms(kernel), device_ms(plain, reps=5, warmup=1),
-             call_ms(kernel), call_ms(plain, reps=10, warmup=2))
+    # the two routes in turns (shared, global, global, shared)
+    turns = [device_ms(lambda r=r: run(r)) for r in
+             (None, "global", "global", None)]
+    log("B9 at the main shape, device ms in turns (shared, global, global, "
+        "shared):", json.dumps(turns))
+    times = (device_ms(run), device_ms(plain, reps=5, warmup=1),
+             call_ms(run), call_ms(plain, reps=10, warmup=2))
     n_bytes, n_ops = b9_work(ST_G, ST_N, ST_D, 0)
-    return kernel_record(
+    rec = kernel_record(
         "fused_stretch", "bipymc_tpu_torch/csrc/fused_stretch.cu",
         "bipymc_tpu/ops/fused_stretch.py:125",
         max(readings[cases[0][0]]["max_abs_dx"],
             readings[cases[0][0]]["max_abs_dlogp"]), times, n_bytes, n_ops)
+    rec["routes_in_turns_ms"] = {"shared": [turns[0], turns[3]],
+                                 "global": [turns[1], turns[2]]}
+    return rec
 
 
 # ---------------------------------------------------------------- phase 2g
@@ -1119,6 +1150,16 @@ def main_path(dev):
         raise AssertionError(f"a mode lost all its chains: {occ.tolist()}")
     busy_share(s)
     return launches, s
+
+
+def kernel_us(rows, n_units, *names):
+    """µs a unit of the kernels ``names`` in a profile ``rows``, matched
+    by the demangled name, whole ("chol_kernel" alone is also in B6's
+    "bchol_kernel")."""
+    keys = [f"(anonymous namespace)::{name}{end}" for name in names
+            for end in "(<"]
+    return sum(us for key, (us, _) in rows.items()
+               if any(k in key for k in keys)) / n_units
 
 
 def busy_share(s, n_units=200, per_unit=1, unit="gen"):
@@ -1747,8 +1788,12 @@ def check_b5(dev):
     xs = torch.as_tensor(x, device=dev) / ls
     xs = xs - xs.mean(-2, keepdim=True)
     cases = [("config 4", xs, xs)]
+    # m % 4 in {1, 2, 3} takes the scalar stores; k = 8 is the last
+    # register instance, k = 9 the first staged in passes of 8
     for c, n, m, k in ((1, 130, 140, 5), (3, 17, 9, 4), (2, 1000, 200, 33),
-                       (5, 64, 64, 1), (7, 33, 300, 2)):
+                       (5, 64, 64, 1), (7, 33, 300, 2), (2, 70, 129, 2),
+                       (3, 50, 130, 8), (1, 33, 131, 9), (2, 64, 256, 8),
+                       (2, 100, 260, 9), (1, 257, 5, 3)):
         A, B = b5_operands(c, n, m, k, seed=n + m + k, dev=dev)
         cases.append((f"c={c} n={n} m={m} k={k}", A, B))
     A, B = b5_operands(1, 40, 50, 3, seed=1, dev=dev)
@@ -1779,6 +1824,9 @@ def check_b5(dev):
     log(f"B5 sqdist: within atol 1e-3 of the plain version in {len(cases)} "
         f"cases; config-4 max abs error {main_err:.3g}; config 5's "
         f"{json.dumps(c5_err)}")
+    if not max(c5_err.values()) <= C5_GRAM_TOL:
+        raise AssertionError(f"B5 on config 5's operands: {c5_err} (limit "
+                             f"{C5_GRAM_TOL})")
 
     kernel = lambda: sqdist(xs, xs)
     plain = lambda: sqdist_plain(xs, xs)
@@ -1793,6 +1841,11 @@ def check_b5(dev):
         "bipymc_tpu/ops/pallas_kernels.py:73", main_err, times, n_bytes,
         n_ops, library_ms=device_ms(library))
     rec["config5_max_abs_err"] = c5_err
+    # config 5's unbatched calls (one a generation, one an Adam step)
+    rec["config5_ms"] = {label: device_ms(lambda: sqdist(A, B))
+                         for label, A, B in cases
+                         if label.startswith("config 5")}
+    log("B5 at config 5's shapes, device ms:", json.dumps(rec["config5_ms"]))
     return rec
 
 
@@ -2061,7 +2114,8 @@ def config4_path(dev):
     if not (np.all(np.isfinite(lml.numpy())) and np.all(rel < 1e-4)):
         raise AssertionError(f"config 4: the card's log-ML is off the "
                              f"float64 one: relative errors {rel.tolist()}")
-    busy_share(s, n_units=50, per_unit=1, unit="step")
+    _, rows = busy_share(s, n_units=50, per_unit=1, unit="step")
+    log("config 4: B5 µs a step:", kernel_us(rows, 50, "sqdist_kernel"))
     return launches
 
 
@@ -2520,20 +2574,14 @@ def config5_path(dev):
     rows = device_times(adam, 1)
     busy_us = sum(us for us, _ in rows.values()) / 20
 
-    def kernel_us(*names):
-        # by the demangled name, whole: "chol_kernel" alone is also in
-        # B6's "bchol_kernel"
-        keys = [f"(anonymous namespace)::{name}{end}" for name in names
-                for end in "(<"]
-        return sum(us for key, (us, _) in rows.items()
-                   if any(k in key for k in keys)) / 20
-
     log("device, Adam step:", json.dumps({
         "wall_us_per_step": wall_us, "busy_us_per_step": busy_us,
         "busy_share": busy_us / wall_us,
         "kernels_per_step": sum(c for _, c in rows.values()) / 20,
-        "b7_us_per_step": kernel_us("chol_kernel", "chol_coop_kernel"),
-        "b8_us_per_step": kernel_us("trisolve_kernel")}))
+        "b5_us_per_step": kernel_us(rows, 20, "sqdist_kernel"),
+        "b7_us_per_step": kernel_us(rows, 20, "chol_kernel",
+                                    "chol_coop_kernel"),
+        "b8_us_per_step": kernel_us(rows, 20, "trisolve_kernel")}))
     for key, (us, count) in sorted(rows.items(),
                                    key=lambda r: -r[1][0])[:12]:
         log(f"  {us / 20:8.3f} us/step {count / 20:6.1f}/step  {key[:100]}")
@@ -2677,7 +2725,9 @@ def stretch_path(dev):
          for k in ("gens_per_sec", "ess_per_sec", "acceptance")}))
 
     busy_share(p, n_units=100)
-    busy_share(s, n_units=20, per_unit=ST_G, unit="chunk")
+    _, rows = busy_share(s, n_units=20, per_unit=ST_G, unit="chunk")
+    log("stretch fused: B9 µs a chunk:",
+        kernel_us(rows, 20, "fused_stretch_kernel"))
 
     # the R̂ stop on both engines: warm call, reset(), timed call; B9 two
     # launches a 100-generation chunk on the fused engine (64 + 36)

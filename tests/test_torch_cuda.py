@@ -34,8 +34,11 @@ summing in other orders); their gradients, and B5's and B6's, within
 its plain version's decisions, except a bit the plain version puts
 within 1e-4 of its threshold (after which, as the walkers interact, no
 later generation is compared), with x and logp within rtol 1e-5 / atol
-1e-6 (B4's bound); ``EnsembleSampler(fused=True)`` must launch it once a
-chunk and take the per-generation engine's decisions by the same rule.
+1e-6 (B4's bound), on the route it chooses and on the global route
+forced, the launch's own plan equal to ``ops/fused_stretch.plan``'s and
+the two routes' outputs equal where both can run;
+``EnsembleSampler(fused=True)`` must launch it once a chunk and take the
+per-generation engine's decisions by the same rule.
 B11 must be bit-equal to its plain version (a copy is a copy), in every
 element type and for indices out of range, and ``DreamZs`` with
 ``fused_gather="kernel"`` and ``gather_kernel=True`` must launch it once
@@ -65,7 +68,7 @@ from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk, fused_chunk_plain,
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
-                                                fused_stretch_plain)
+                                                fused_stretch_plain, plan)
 from bipymc_tpu_torch.ops.gather_rows import (gather_rows,
                                               gather_rows_reference)
 from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
@@ -610,7 +613,10 @@ def test_dreamzs_kernel_rng_on_card_launches_only_kernel_mode_b1(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,n,m,k", [(64, 512, 512, 2), (1, 130, 140, 5),
-                                     (3, 17, 9, 4), (2, 1000, 200, 33)])
+                                     (3, 17, 9, 4), (2, 1000, 200, 33),
+                                     (2, 70, 129, 2), (3, 50, 130, 8),
+                                     (1, 33, 131, 9), (2, 64, 256, 8),
+                                     (2, 100, 260, 9)])
 def test_b5_kernel_matches_plain(cuda, c, n, m, k):
     rng = np.random.default_rng(n + m + k)
     A = torch.from_numpy(3 * rng.standard_normal((c, n, k)).astype(
@@ -953,12 +959,13 @@ def _stretch_target(kind, d):
     return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
 
 
-def _b9_hold(lp, x0, j, z, log_u):
+def _b9_hold(lp, x0, j, z, log_u, route=None):
     """B9 against its plain version on one operand set; returns the
     kernel's outputs."""
     lp0 = lp(x0)
     before = fused_stretch.launches
-    out = fused_stretch(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2)
+    out = fused_stretch(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2,
+                        route=route)
     torch.cuda.synchronize()
     assert fused_stretch.launches == before + 1
     ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2)
@@ -972,23 +979,70 @@ def _b9_hold(lp, x0, j, z, log_u):
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("G,n,d,kind", [(64, 256, 16, "gaussian"),
-                                        (5, 18, 3, "mixture"),
-                                        (6, 16, 4, "nonfinite")])
-def test_b9_kernel_matches_plain(cuda, G, n, d, kind):
+def _b9_operands(G, n, d, kind, dev):
     lp = _stretch_target("mixture" if kind == "mixture" else "gaussian", d)
-    g = torch.Generator(device=cuda).manual_seed(G + n + d)
+    g = torch.Generator(device=dev).manual_seed(G + n + d)
     words = torch.randint(-2 ** 31, 2 ** 31, (G, n, 3), generator=g,
-                          device=cuda, dtype=torch.int32)
+                          device=dev, dtype=torch.int32)
     j, z, log_u = stretch.convert_words(words, 2.0)
     if kind == "nonfinite":
         z[1, 0] = z[3, n - 1] = torch.inf
-    x0 = 2.0 * torch.randn((n, d), generator=g, device=cuda)
-    out = _b9_hold(lp, x0, j, z, log_u)
+    x0 = 2.0 * torch.randn((n, d), generator=g, device=dev)
+    return lp, x0, j, z, log_u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("G,n,d,kind", [(64, 256, 16, "gaussian"),
+                                        (5, 18, 3, "mixture"),
+                                        (6, 16, 4, "nonfinite"),
+                                        (8, 1024, 16, "gaussian"),
+                                        (4, 256, 100, "gaussian"),
+                                        (4, 1024, 100, "mixture"),
+                                        (4, 1024, 100, "gaussian")])
+def test_b9_kernel_matches_plain(cuda, G, n, d, kind, route):
+    """B9 on the route it chooses and on the global route forced, against
+    its plain version; the launch's own plan equal to ``plan``'s."""
+    lp, x0, j, z, log_u = _b9_operands(G, n, d, kind, cuda)
+    out = _b9_hold(lp, x0, j, z, log_u, route)
+    mixture = kind == "mixture"
+    assert fused_stretch.last_plan == plan(n, d, int(mixture),
+                                           4 if mixture else 0, route=route)
+    assert fused_stretch.last_plan[0] == (
+        "global" if route == "global" or n * d > 256 * 100 else "shared")
     if kind == "nonfinite":
         assert not bool(out[2][1, 0]) and not bool(out[2][3, n - 1])
     assert 0 < float(out[2].float().mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n,d,kind", [(64, 256, 16, "gaussian"),
+                                        (5, 18, 3, "mixture"),
+                                        (8, 1024, 16, "gaussian"),
+                                        (4, 256, 100, "mixture"),
+                                        (4, 256, 100, "gaussian")])
+def test_b9_routes_agree_bit_for_bit(cuda, G, n, d, kind):
+    """Where the population fits shared memory, both routes run the same
+    per-walker code with the same lanes a walker: equal outputs."""
+    lp, x0, j, z, log_u = _b9_operands(G, n, d, kind, cuda)
+    lp0 = lp(x0)
+    outs = []
+    for route in ("shared", "global"):
+        outs.append(fused_stretch(x0, lp0, j, z, log_u, lp, n // 2,
+                                  route=route))
+        assert fused_stretch.last_plan[0] == route
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_b9_forced_shared_route_that_does_not_fit_raises(cuda):
+    lp, x0, j, z, log_u = _b9_operands(2, 1024, 100, "mixture", cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_stretch(x0, lp(x0), j, z, log_u, lp, 512, route="shared")
+    with pytest.raises(ValueError, match="route"):
+        fused_stretch(x0, lp(x0), j, z, log_u, lp, 512, route="l2")
 
 
 @pytest.mark.cuda

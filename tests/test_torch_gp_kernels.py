@@ -6,9 +6,11 @@ B5: the port's ``sqdist_plain`` against ``_sqdist_xla`` within atol 1e-4
 (both full-float32 products on the CPU, summed in other orders, on
 distances of order 10²) and against the Pallas kernel
 ``_sqdist_pallas_call`` run in interpret mode, as tests/test_gp.py runs
-it, within that test's atol 1e-3; ``pairwise_sqdist``, batched over a
-leading chain axis and not, against the JAX one (vmapped over chains)
-within atol 1e-4, and float64 kept within 1e-12 of the exact distances.
+it, within that test's atol 1e-3, at the CUDA kernel's edge shapes too
+(m % 4 ≠ 0, k at and past its last register instance, 8);
+``pairwise_sqdist``, batched over a leading chain axis and not, against
+the JAX one (vmapped over chains) within atol 1e-4, and float64 kept
+within 1e-12 of the exact distances.
 
 B6: the port's ``cholesky_solve_batched`` and ``cholesky_batched`` (the
 plain versions on the CPU) against ``cholesky_solve_batched_pallas(...,
@@ -37,8 +39,13 @@ def _pts(shape, seed, scale=3.0):
             ).astype(np.float32)
 
 
-def test_sqdist_plain_matches_xla_and_pallas_interpret():
-    a, b = _pts((130, 5), 4), _pts((140, 5), 5)
+# the first shape, then the kernel's edges: m % 4 in {1, 2, 3} (its
+# scalar-store rows) and k in {1, 8, 9} (its register instances end at 8)
+@pytest.mark.parametrize("n,m,k", [(130, 140, 5), (40, 129, 2), (40, 130, 2),
+                                   (40, 131, 2), (64, 64, 1), (50, 128, 8),
+                                   (50, 132, 9)])
+def test_sqdist_plain_matches_xla_and_pallas_interpret(n, m, k):
+    a, b = _pts((n, k), 4), _pts((m, k), 5)
     out = pallas_kernels.sqdist_plain(torch.from_numpy(a),
                                       torch.from_numpy(b)).numpy()
     xla = np.asarray(jpk._sqdist_xla(jnp.asarray(a), jnp.asarray(b)))
@@ -53,7 +60,7 @@ def test_sqdist_plain_matches_xla_and_pallas_interpret():
         torch.from_numpy(a), torch.from_numpy(b)).numpy(), out)
     batched = pallas_kernels.sqdist(torch.from_numpy(a)[None].repeat(3, 1, 1),
                                     torch.from_numpy(b)[None].repeat(3, 1, 1))
-    assert batched.shape == (3, 130, 140)
+    assert batched.shape == (3, n, m)
     np.testing.assert_allclose(batched.numpy()[2], out, rtol=0, atol=1e-4)
 
 

@@ -35,8 +35,9 @@ from bipymc_tpu.samplers import stretch as jstretch
 import bipymc_tpu_torch as bt
 from bipymc_tpu_torch import convert
 from bipymc_tpu_torch.core.rng import StepWords
-from bipymc_tpu_torch.ops.fused_stretch import (MAX_WALKERS, fused_stretch,
-                                                fused_stretch_plain)
+from bipymc_tpu_torch.ops.fused_stretch import (MAX_SHARED_BYTES, MAX_WALKERS,
+                                                fused_stretch,
+                                                fused_stretch_plain, plan)
 from bipymc_tpu_torch.samplers import api, stretch
 from bipymc_tpu_torch.samplers.stretch_fused import make_chunk_runner
 from bipymc_tpu_torch.testing import (match_stretch_decisions,
@@ -159,10 +160,12 @@ def _scal(j, z, log_u):
     return scal
 
 
+# (1024, 100): the API's cap at config 3's width, which the CUDA kernel
+# runs on its global route (plan); a smaller G keeps it fast
 @pytest.mark.parametrize("kind", ["gaussian", "mixture", "nonfinite"])
-@pytest.mark.parametrize("n,d", [(2, 1), (18, 3), (64, 16)])
+@pytest.mark.parametrize("n,d", [(2, 1), (18, 3), (64, 16), (1024, 100)])
 def test_plain_matches_pallas_interpret(n, d, kind):
-    G = 5
+    G = 5 if n <= 64 else 4
     jlp, lp = _targets("mixture" if kind == "mixture" else "gaussian", d)
     x0, j, z, log_u = _b9_operands(G, n, d, seed=n + d)
     if kind == "nonfinite":
@@ -183,6 +186,32 @@ def test_plain_matches_pallas_interpret(n, d, kind):
     if kind == "nonfinite":
         assert not bool(acc[1, 0]) and not bool(acc[3, n - 1])
     assert 0 < int(acc.sum()) and (n == 2 or int(acc.sum()) < G * n)
+
+
+@pytest.mark.parametrize("n,d,route", [(256, 16, "shared"),
+                                       (1024, 16, "shared"),
+                                       (256, 100, "shared"),
+                                       (1024, 100, "global")])
+def test_b9_plan_fits_the_population_where_it_can(n, d, route):
+    """B9's route on the correlated Gaussian: the population in shared
+    memory where it fits the H100's 227 KB opt-in limit, with all of a
+    half's walkers in one round (L lanes a walker, L × n/2 ≤ 1,024), else
+    in global memory, with as many walkers at once as their residuals
+    leave room for; a forced route that does not fit refused."""
+    chosen, L, threads, smem = plan(n, d, 0)
+    assert chosen == route and smem <= MAX_SHARED_BYTES == 232_448
+    assert L in (1, 2, 4, 8, 16, 32) and L * n // 2 <= 1024
+    assert plan(n, d, 0, route="global")[0] == "global"
+    if route == "global":
+        assert plan(n, d, 0, route="shared") is None
+        assert 32 <= threads < L * n // 2
+        # the mixture needs no residual scratch: every walker in one round
+        assert plan(n, d, 1, 4)[:3] == ("global", 2, 1024)
+    else:
+        assert threads == L * n // 2
+        assert plan(n, d, 0, route="shared") == (chosen, L, threads, smem)
+    # the Gaussian's constants alone past the limit: no route
+    assert plan(8, 240, 0) is None
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
