@@ -1,6 +1,6 @@
-// Block-wide float sums shared by the port's per-chain kernels (B1, B2,
-// B4): one block works on one chain and reduces over d with warp
-// shuffles plus one shared-memory pass. Every thread combines the warp
+// Block-wide float sums shared by the port's per-chain kernels (B1, B2;
+// B4 takes only min0 and the full mask from here): one block works on one
+// chain and reduces over d with warp shuffles plus one shared-memory pass. Every thread combines the warp
 // partials in the same order, so the whole block agrees on each total
 // bit for bit, which keeps accept decisions uniform over the block.
 

@@ -10,10 +10,11 @@
 //   1 isotropic Gaussian mixture: per-mode squared distances, then
 //     torch.logsumexp's max-shifted sum of (log_w + norm) - 0.5 sq / s^2.
 // The Python wrappers raise for any other target. eval_target spends a
-// whole block on one point (B1, B4); B9 (fused_stretch.cu::eval_group)
-// spends an aligned group of lanes on one point with the same sums, from
+// whole block on one point (B1); B9 (fused_stretch.cu::eval_group) spends
+// an aligned group of lanes on one point with the same sums, from
 // load_target's layout but for the Gaussian's inverse, which it keeps
-// transposed.
+// transposed; B4 (fused_rw_chunk.cu) keeps its own layouts and sums and
+// shares mixture_lse.
 
 #pragma once
 

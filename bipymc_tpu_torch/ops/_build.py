@@ -51,7 +51,7 @@ SIGNATURES = {
                         _I, _F, _F, _F, _P, _P, _P]),
     "fused_rw_chunk": ("fused_rw_chunk_launch",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
-                        _F, _F, _I, _P, _P, _P, _P, _P]),
+                        _F, _F, _I, _P, _P, _P, _P, _P, _P]),
     "fused_chunk": ("fused_chunk_launch",
                     [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _U64, _L,
                      _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
@@ -70,6 +70,11 @@ SIGNATURES = {
     "accept_select": ("accept_select_launch",
                       [_P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P,
                        _P, _P, _P]),
+}
+# further entry points of a source: name -> (source, C symbol, argtypes)
+ENTRY_POINTS = {
+    "fused_rw_chunk_plan": ("fused_rw_chunk", "fused_rw_chunk_plan",
+                            [_I, _I, _I, _I, _I, _I, _P]),
 }
 
 
@@ -135,10 +140,13 @@ def _cdll(name: str) -> ctypes.CDLL:
 
 @functools.cache
 def library(name: str):
-    """The entry point of kernel source ``name``, built and loaded on
-    first use."""
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(_cdll(name), fn_name)
+    """The entry point of kernel source ``name``, or the entry point
+    ``name`` of :data:`ENTRY_POINTS`, built and loaded on first use."""
+    if name in ENTRY_POINTS:
+        source, fn_name, argtypes = ENTRY_POINTS[name]
+    else:
+        source, (fn_name, argtypes) = name, SIGNATURES[name]
+    fn = getattr(_cdll(source), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

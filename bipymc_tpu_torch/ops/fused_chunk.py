@@ -60,6 +60,37 @@ _MAX_WARPS = 4                   # kMaxWarps in csrc/block_reduce.cuh
 _MAX_SMEM = 232448 - 4 * _MAX_WARPS * MAX_MODES - 4 * 6 * _MAX_WARPS
 
 
+def shared_bytes(kind: int, d: int, n_modes: int, rng="stream") -> int:
+    """Bytes of dynamic shared memory a block of B1 takes: the target's
+    constants (d² + d floats for the correlated Gaussian, kind 0;
+    ``n_modes``·d for the mixture, kind 1) and a chain's rows (3·d floats,
+    6·d in kernel-RNG mode)."""
+    n_const = d * d + d if kind == 0 else n_modes * d
+    return 4 * (n_const + (6 * d if rng == "kernel" else 3 * d))
+
+
+def check_target_fits(kind: int, d: int, n_modes: int, rng="stream"):
+    """Raise ``ValueError`` where B1 cannot hold the target's constants
+    and a chain's rows in shared memory, naming the bytes and the largest
+    d it takes; the wrapper's own check and ``DreamZs(fused=True)`` on a
+    CUDA device both call it. The plain version takes any d."""
+    need = shared_bytes(kind, d, n_modes, rng)
+    if need <= _MAX_SMEM:
+        return
+    lo, hi = 0, d                  # fits at lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if shared_bytes(kind, mid, n_modes, rng) <= _MAX_SMEM:
+            lo = mid
+        else:
+            hi = mid
+    raise ValueError(
+        f"kernel B1 ({rng} mode) keeps the target's constants and a "
+        f"chain's rows in shared memory: at d={d} they take {need} bytes, "
+        f"more than the {_MAX_SMEM} a block may use; it takes this target "
+        f"up to d={lo} (the plain version, on the CPU, takes any d)")
+
+
 def metropolis_select(x, lp, x_star, lp_star, log_jac, log_u):
     """The DREAM-zs accept for every chain: log α = min(0, (lp* − lp) +
     log_jac), −inf where lp* is not finite; accept where log u < log α.
@@ -144,13 +175,9 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
     kind, c0, c1, n_modes, f0, f1 = kernel_operands(log_prob, x0.device, d,
                                                     "fused_chunk")
     kernel_rng = rng == "kernel"
+    check_target_fits(kind, d, n_modes, rng)
     lds = _check_operands(x0, logp0, rows, u_mask, u_e, eps, scal,
                           test_bits)
-    n_const = d * d + d if kind == 0 else n_modes * d
-    n_chain_smem = 6 * d if kernel_rng else 3 * d
-    if 4 * (n_const + n_chain_smem) > _MAX_SMEM:
-        raise ValueError(f"d={d}: the target's constants and the chain's "
-                         "rows do not fit the kernel's shared memory")
     dev = x0.device
     x_hist = torch.empty((G, n, d), dtype=torch.float32, device=dev)
     lp_hist = torch.empty((G, n), dtype=torch.float32, device=dev)

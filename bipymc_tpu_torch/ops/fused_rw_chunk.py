@@ -16,7 +16,19 @@ goes to ``csrc/fused_rw_chunk.cu``, which evaluates the built-in
 targets' kernel forms (``models/targets.py``, ``csrc/target.cuh``), or
 the call raises.
 ``fused_rw_chunk.launches`` counts the kernel's launches.
+
+The kernel has three routes, chosen in one place in C
+(``csrc/fused_rw_plan.cuh::rw_plan``): the latency route (d ≤ 32, one
+warp a chain, config 1's shape), the throughput route (the Gaussian up to
+d = 128, its inverse in registers, the wide shape) and the global route
+(the inverse streamed from device memory: the Gaussian up to d = 20,832,
+the mixture at any d). :func:`plan` mirrors the choice, for the CPU tests
+and for printing, and ``fused_rw_chunk.last_plan`` is what the last
+launch took. The routes compute the target in one order, so their
+outputs are equal bit for bit.
 """
+
+import ctypes
 
 import torch
 
@@ -27,10 +39,83 @@ from bipymc_tpu_torch.ops import _build
 # lanes of the packed per-step scalars [K, n, 4]
 S_SZ1, S_SW, S_LU1, S_LU2 = 0, 1, 2, 3
 N_SCAL = 4
-_MAX_WARPS = 4                   # kMaxWarps in csrc/block_reduce.cuh
-# bytes of dynamic shared memory a block may use: the card's 232448 less
-# the kernel's static reduction scratch, float[kMaxWarps * kMaxModes]
-_MAX_SMEM = 232448 - 4 * _MAX_WARPS * MAX_MODES
+
+ROUTES = ("latency", "throughput", "global")
+STAGING = ("none", "ring", "whole")
+# The H100's shared memory a block may opt in to, bytes (the entry point
+# reads the card's own figure)
+MAX_SHARED_BYTES = 232_448
+# csrc/fused_rw_plan.cuh's constants (kLatD, kThrD, kMaxCpb, kCpbN, kRing,
+# kWholeBytes, kTJ, kTiles, kGlobalThreads, kVecs, kGlobalCpb)
+_LAT_D, _THR_D = 32, 128         # the latency and throughput routes' d
+_MAX_CPB, _CPB_N = 8, 128        # chains a block: n // 128, 1 to 8
+_RING, _WHOLE_BYTES = 4, 96 * 1024
+_TJ, _TILES, _GLOBAL_THREADS = 8, 8, 256
+_VECS = 7                        # a chain's x, y1, y2 and four s halves
+_GLOBAL_CPB = 4                  # the global route's chains a block, at most
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def plan(n: int, d: int, K: int, kind: int, n_modes: int = 0, route=None):
+    """The launch ``csrc/fused_rw_plan.cuh::rw_plan`` makes for n chains
+    in d dimensions, K steps, on target ``kind`` (0 the correlated
+    Gaussian, 1 the mixture of ``n_modes``): ``(route, chains a block,
+    threads, shared bytes, staging)``, staging ``"whole"`` (all K steps'
+    inputs in shared memory from the start), ``"ring"`` (``_RING`` steps
+    ahead) or ``"none"`` (read from device memory). ``route=None`` takes
+    the latency route for d ≤ 32, the throughput route for the Gaussian up
+    to d = 128, else the global route. None where the route asked for does
+    not take the shape (latency above d = 32, throughput for the mixture
+    or above d = 128), for a mixture of more than ``MAX_MODES`` modes, or
+    where even one chain a block does not fit :data:`MAX_SHARED_BYTES`."""
+    if kind == 1 and not 1 <= n_modes <= MAX_MODES:
+        return None
+    lat, thr = d <= _LAT_D, kind == 0 and d <= _THR_D
+    chosen = route or ("latency" if lat else
+                       "throughput" if thr else "global")
+    if (chosen == "latency" and not lat) or (chosen == "throughput"
+                                             and not thr):
+        return None
+    ld = cols = _round_up(d, 32)
+    cap = _GLOBAL_CPB if chosen == "global" else _MAX_CPB
+    for cpb in range(min(cap, max(1, n // _CPB_N)), 0, -1):
+        threads = 32 * cpb
+        floats = MAX_MODES                   # the mixture's log weights
+        if chosen == "throughput":
+            threads = max(threads, 2 * cols)   # two threads a column
+            floats += ld + cpb * _VECS * ld  # the mean; a chain's vectors
+        if chosen != "latency" and kind == 0:
+            floats += 2 * cpb * ld           # r1, r2 a chain
+        if chosen == "global" and kind == 0:   # a thread a column of inv
+            threads = max(threads, min(cols, _GLOBAL_THREADS))
+            floats += _TILES * _TJ * threads       # the ring of inv tiles
+        staging = "none"
+        if chosen != "global":
+            slot = cpb * (2 * d + 4)
+            staging = "whole" if 4 * slot * K <= _WHOLE_BYTES else "ring"
+            floats += (K if staging == "whole" else _RING) * slot
+        if 4 * floats <= MAX_SHARED_BYTES:
+            return chosen, cpb, threads, 4 * floats, staging
+    return None
+
+
+def max_d(kind: int, n_modes: int = 0) -> int | None:
+    """The largest d for which :func:`plan` finds a launch for one chain
+    (20,832 for the correlated Gaussian), or None for the mixture, which
+    the global route takes at any d."""
+    if kind == 1:
+        return None
+    lo, hi = 1, 1 << 20            # plans at lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if plan(1, mid, 1, kind, n_modes) is None:
+            hi = mid
+        else:
+            lo = mid
+    return lo
 
 
 def rw_select(x, lp, y1, l1, log_u1, y2=None, l2=None, log_u2=None,
@@ -89,7 +174,7 @@ def fused_rw_chunk_plain(x0, logp0, dy1, dy2, scal, log_prob, delayed):
 
 
 def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
-                   steps_per_cell=1):
+                   steps_per_cell=1, route=None):
     """Advance K random-walk steps: returns (x_hist [K, n, d], logp_hist
     [K, n], accepted [K, n] bool, stage [K, n] int32).
 
@@ -99,7 +184,12 @@ def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
     only log u₁ is read without ``delayed``. ``steps_per_cell`` is kept
     for the JAX signature: it must divide K and changes nothing here.
     On the card every operand is float32 and contiguous, and
-    ``log_prob`` must carry a kernel form.
+    ``log_prob`` must carry a kernel form: a correlated Gaussian up to
+    d = :func:`max_d` (20,832; ``ValueError`` above) or a mixture of at
+    most 16 modes at any d. ``route`` forces one of
+    :data:`ROUTES`, for the checks that hold the routes together; a
+    forced route that does not take the shape raises ``ValueError``. The
+    samplers never pass it.
     """
     K, n, d = dy1.shape
     if K % int(steps_per_cell) != 0:
@@ -113,6 +203,9 @@ def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
                          f"{tuple(scal.shape)}")
     if delayed and (dy2 is None or dy2.shape != dy1.shape):
         raise ValueError(f"delayed=True needs dy2 [{K}, {n}, {d}]")
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route={route!r}: expected None or one of "
+                         f"{ROUTES}")
     if x0.device.type == "cpu":
         return fused_rw_chunk_plain(x0, logp0, dy1, dy2, scal, log_prob,
                                     delayed)
@@ -120,29 +213,45 @@ def fused_rw_chunk(x0, logp0, dy1, dy2, scal, log_prob, delayed,
         log_prob, x0.device, d, "fused_rw_chunk")
     operands = [x0, logp0, dy1, scal, c0, c1] + ([dy2] if delayed else [])
     _check_cuda(x0, operands)
-    n_const = d * d + d if kind == 0 else n_modes * d
-    if 4 * (n_const + 4 * d) > _MAX_SMEM:
-        raise ValueError(f"d={d}: the target's constants and the chain's "
-                         "rows do not fit the kernel's shared memory")
+    force = -1 if route is None else ROUTES.index(route)
+    chosen = (ctypes.c_int * 6)()
+    err = _build.library("fused_rw_chunk_plan")(
+        n, d, K, kind, n_modes, force, ctypes.addressof(chosen))
+    if err == _build.ERR_SHARED_MEMORY:
+        if route is not None:
+            raise ValueError(f"route={route!r} does not take n={n}, d={d}, "
+                             f"K={K} on this target (see "
+                             "ops/fused_rw_chunk.plan)")
+        raise ValueError(f"fused_rw_chunk: the global route keeps the "
+                         f"Gaussian's residuals, 8·d bytes a chain, in "
+                         f"shared memory and takes d up to {max_d(kind)}; "
+                         f"d={d} (the plain version, on the CPU, takes any d)")
+    _build.check(err, "fused_rw_chunk")
     dev = x0.device
     x_hist = torch.empty((K, n, d), dtype=torch.float32, device=dev)
     lp_hist = torch.empty((K, n), dtype=torch.float32, device=dev)
     acc_hist = torch.empty((K, n), dtype=torch.bool, device=dev)
     stage_hist = torch.empty((K, n), dtype=torch.int32, device=dev)
-    threads = min(128, 32 * ((d + 31) // 32))
+    # the global route's workspace: a chain's x, y1, y2 and s
+    work = (torch.empty((n, _VECS, chosen[5]), dtype=torch.float32,
+                        device=dev)
+            if ROUTES[chosen[0]] == "global" else None)
     err = _build.library("fused_rw_chunk")(
         x0.data_ptr(), logp0.data_ptr(), dy1.data_ptr(),
         dy2.data_ptr() if delayed else None, scal.data_ptr(), K, n, d,
         int(bool(delayed)), kind, c0.data_ptr(), c1.data_ptr(), n_modes, f0,
-        f1, threads, x_hist.data_ptr(), lp_hist.data_ptr(),
-        acc_hist.data_ptr(), stage_hist.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        f1, chosen[0], None if work is None else work.data_ptr(),
+        x_hist.data_ptr(), lp_hist.data_ptr(), acc_hist.data_ptr(),
+        stage_hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_rw_chunk")
+    fused_rw_chunk.last_plan = (ROUTES[chosen[0]], *chosen[1:4],
+                                STAGING[chosen[4]])
     fused_rw_chunk.launches += 1
     return x_hist, lp_hist, acc_hist, stage_hist
 
 
 fused_rw_chunk.launches = 0
+fused_rw_chunk.last_plan = None
 
 
 def _check_cuda(x0, operands):

@@ -62,6 +62,28 @@ def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None):
     route asked for (``route=None``: the shared one where it fits, else
     the global one) does not fit :data:`MAX_SHARED_BYTES`."""
     half = n // 2
+    L, ld, fixed, r_per_group = _layout(n, d, kind, n_modes)
+    state = n * ld + _round_up(n, 4)
+    cap = MAX_SHARED_BYTES // 4
+    if fixed + r_per_group > cap:
+        return None
+    groups = min(half, _THREADS // L)
+    shared_fits = fixed + groups * r_per_group + state <= cap
+    if route == "shared" and not shared_fits:
+        return None
+    chosen = "global" if route == "global" or not shared_fits else "shared"
+    if chosen == "global" and r_per_group:
+        groups = min(groups, (cap - fixed) // r_per_group)
+    smem = 4 * (fixed + _round_up(groups * r_per_group, 4)
+                + (state if chosen == "shared" else 0))
+    return chosen, L, _round_up(groups * L, 32), smem
+
+
+def _layout(n: int, d: int, kind: int, n_modes: int):
+    """``(L, ld, fixed, r_per_group)`` of ``fused_stretch_plan``: lanes a
+    walker, the shared row stride, the floats every route keeps (the
+    target's constants and the words' buffers) and a group's residual."""
+    half = n // 2
     # the register instance: the Gaussian at d <= 16, 4 lanes a walker
     reg = kind == 0 and d <= 16 and 4 * half <= _THREADS // 2
     L = 1
@@ -79,21 +101,30 @@ def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None):
         ld += L
     n_const = _round_up(d * ldc + ldc if kind == 0 else n_modes * d, 4)
     r_per_group = ldc if kind == 0 else 0
-    fixed = n_const + 6 * _round_up(n, 4)
-    state = n * ld + _round_up(n, 4)
-    cap = MAX_SHARED_BYTES // 4
-    if fixed + r_per_group > cap:
-        return None
-    groups = min(half, _THREADS // L)
-    shared_fits = fixed + groups * r_per_group + state <= cap
-    if route == "shared" and not shared_fits:
-        return None
-    chosen = "global" if route == "global" or not shared_fits else "shared"
-    if chosen == "global" and r_per_group:
-        groups = min(groups, (cap - fixed) // r_per_group)
-    smem = 4 * (fixed + _round_up(groups * r_per_group, 4)
-                + (state if chosen == "shared" else 0))
-    return chosen, L, _round_up(groups * L, 32), smem
+    return L, ld, n_const + 6 * _round_up(n, 4), r_per_group
+
+
+def check_target_fits(n: int, d: int, kind: int, n_modes: int = 0) -> None:
+    """Raise ``ValueError`` where B9 cannot hold the target for n walkers
+    (:func:`plan` finds no route), naming the bytes and the largest d it
+    takes; the wrapper's own check and ``EnsembleSampler(fused=True)`` on
+    a CUDA device both call it. The plain version takes any d."""
+    if plan(n, d, kind, n_modes) is not None:
+        return
+    _, _, fixed, r_per_group = _layout(n, d, kind, n_modes)
+    lo, hi = 0, d                  # plans at lo, not at hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if plan(n, mid, kind, n_modes) is not None:
+            lo = mid
+        else:
+            hi = mid
+    raise ValueError(
+        f"kernel B9 keeps the target's constants in shared memory: with "
+        f"{n} walkers at d={d} they and one walker's scratch take "
+        f"{4 * (fixed + r_per_group)} bytes, more than the "
+        f"{MAX_SHARED_BYTES} a block may use; it takes this target up to "
+        f"d={lo} (the plain version, on the CPU, takes any d)")
 
 
 def check_walkers(n: int) -> None:
@@ -188,6 +219,7 @@ def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None):
         raise ValueError(f"fused_stretch: no kernel for device {x0.device}")
     kind, c0, c1, n_modes, f0, f1 = kernel_operands(
         log_prob, x0.device, d, "fused_stretch")
+    check_target_fits(n, d, kind, n_modes)
     for a in (x0, logp0, z, log_u, j, c0, c1):
         if a.device != x0.device:
             raise ValueError(f"an operand is on {a.device}, x0 on "

@@ -24,10 +24,18 @@ non-zero:
 2b. B4 (``fused_rw_chunk``) against its plain version
    on the card: ``delayed`` in {False, True} × the two targets with a
    kernel form × (n, d, K) in {(1, 2, 50), (4, 2, 20), (37, 129, 7),
-   (256, 100, 50)}, and a non-finite ``dy1`` row that must be rejected.
-   Accept decisions and stages exactly equal, x and logp within rtol
-   1e-5 / atol 1e-6. Timed at the config-1 shape (the kernels line) and
-   at the wide shape.
+   (256, 100, 50)}, the Gaussian at (2, 240, 5) and (256, 300, 4), and a
+   non-finite ``dy1`` row that must be rejected, each on the route it
+   chooses and on every route forced that takes the shape (latency,
+   throughput, global), the launch's plan equal to
+   ``ops/fused_rw_chunk.plan``'s. Accept decisions and stages exactly
+   equal, x and logp within rtol 1e-5 / atol 1e-6, the routes' outputs
+   equal bit for bit. Timed at the config-1 shape (the kernels line, with
+   µs a step and the launch floor from the same call), at the wide shape
+   (K = 50, n = 256, d = 100; the throughput and global routes in turns)
+   and at n = 256, d = 240 and 300; µs a step also as the slope of device
+   time over K (config 1 from K = 50 to 200, the wide shape from 10 to
+   50), which leaves out the launch and the prologue.
 2c. B5 (``sqdist``) and B6 (``bchol``: ``cholesky_batched`` and
    ``cholesky_solve_batched``) against their plain versions on the card:
    B5 at config 4's [64, 512, 2] x [64, 512, 2], at config 5's [256, 2]
@@ -179,9 +187,10 @@ non-zero:
    n_chains=1, fused=True)``, 20,000 steps, a warm continuation of
    20,000, a timed continuation of 20,000. B4 must have launched
    3 × 20,000 / 50 = 1,200 times, and the posterior must match the truth
-   (mean within 0.15, every covariance entry within 0.3). Then 10 chunks
-   timed alone and 10 under the profiler, and the Welford replay's share
-   of a chunk.
+   (mean within 0.15, every covariance entry within 0.3); the route B4
+   took is printed (the latency route). Then 10 chunks timed alone and 10
+   under the profiler, B4's µs a chunk and a step from that profile, and
+   the Welford replay's share of a chunk.
 6. The R̂ stop on the fused RW path: ``Dram(fused=True)``, 4 chains,
    ``run_mcmc_until`` to R̂ < 1.1, one warm call, ``reset()``, one timed
    call; B4 must have launched once per fused chunk of the two calls.
@@ -476,8 +485,9 @@ def launch_floor(dev):
     timed as the kernels are."""
     one, out = torch.ones(1, device=dev), torch.empty(1, device=dev)
     op = lambda: torch.neg(one, out=out)
-    log("launch floor:", json.dumps({"device_ms": device_ms(op),
-                                     "call_ms": call_ms(op)}))
+    floor = {"device_ms": device_ms(op), "call_ms": call_ms(op)}
+    log("launch floor:", json.dumps(floor))
+    return floor
 
 
 # ---------------------------------------------------------------- phase 2e
@@ -1589,16 +1599,38 @@ def b4_operands(n, d, K, seed, dev):
     return (torch.randn((n, d), **f32), step * z1, isk * step * z2, scal)
 
 
+def b4_work(n, d, K, stage):
+    """Bytes and operations of a DR launch of B4 on the Gaussian: x0,
+    logp0, dy1, dy2, scal and the target's constants read once, the
+    histories written once; a target evaluation at every step and a second
+    one where stage 1 rejected (``stage`` [K, n], from this run)."""
+    n_evals = K * n + int((stage != 1).sum())
+    n_bytes = 4 * (n * d + n + 3 * K * n * d + 4 * K * n + d * d + d
+                   + 2 * K * n) + K * n
+    n_ops = n_evals * (2 * d * d + 3 * d) + 2 * K * n * d + 30 * K * n
+    return n_bytes, n_ops
+
+
+def bound_ms(n_bytes, n_ops):
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+
+
 def check_b4(dev):
-    from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
-                                                     fused_rw_chunk_plain)
+    """Phase 2b: B4 against its plain version on every route that takes
+    each shape, the routes bit-equal to each other, then timed."""
+    from bipymc_tpu_torch.ops.fused_rw_chunk import (ROUTES, fused_rw_chunk,
+                                                     fused_rw_chunk_plain,
+                                                     plan)
 
     cases = [(n, d, K, kind, delayed)
              for n, d, K in ((1, 2, 50), (4, 2, 20), (37, 129, 7),
                              (256, 100, 50))
              for kind in ("gaussian", "mixture")
              for delayed in (False, True)]
-    errs = {}
+    cases += [(n, d, K, "gaussian", delayed)
+              for n, d, K in ((2, 240, 5), (256, 300, 4))
+              for delayed in (False, True)]
+    errs, runs = {}, {r: 0 for r in ROUTES}
     # the last case has a non-finite dy1 row, which must be rejected
     for i, (n, d, K, kind, delayed) in enumerate(
             cases + [(8, 2, 20, "gaussian", True)]):
@@ -1609,56 +1641,129 @@ def check_b4(dev):
             dy1[5, 3] = torch.inf
         dy2 = dy2 if delayed else None
         lp0 = lp(x0)
-        out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed)
         ref = fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp, delayed)
-        torch.cuda.synchronize()
-        ex = (out[0] - ref[0]).abs()
-        el = (out[1] - ref[1]).abs()
-        if not (torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
-                and bool(torch.all(ex <= 1e-6 + 1e-5 * ref[0].abs()))
-                and bool(torch.all(el <= 1e-6 + 1e-5 * ref[1].abs()))):
-            raise AssertionError(
-                f"B4 differs from its plain version at n={n} d={d} K={K} "
-                f"{kind} delayed={delayed} nonfinite={nonfinite}: accepts "
-                f"equal {torch.equal(out[2], ref[2])}, stages equal "
-                f"{torch.equal(out[3], ref[3])}, max |dx| "
-                f"{float(ex.max()):.3g}, max |dlogp| {float(el.max()):.3g}")
-        if nonfinite and int(out[3][5, 3]) == 1:
-            raise AssertionError("B4 accepted a non-finite proposal")
-        errs[(n, d, K, kind, delayed)] = max(float(ex.max()),
-                                             float(el.max()))
+        mixture = int(kind == "mixture")
+        label = (f"n={n} d={d} K={K} {kind} delayed={delayed} "
+                 f"nonfinite={nonfinite}")
+        outs = []
+        for route in (None, *ROUTES):
+            want = plan(n, d, K, mixture, 4 * mixture, route)
+            if want is None:
+                continue
+            out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed,
+                                 route=route)
+            torch.cuda.synchronize()
+            if fused_rw_chunk.last_plan != want:
+                raise AssertionError(f"B4 at {label}, route {route}: the "
+                                     f"launch took {fused_rw_chunk.last_plan}"
+                                     f", plan() says {want}")
+            runs[want[0]] += route is not None
+            ex = (out[0] - ref[0]).abs()
+            el = (out[1] - ref[1]).abs()
+            if not (torch.equal(out[2], ref[2])
+                    and torch.equal(out[3], ref[3])
+                    and bool(torch.all(ex <= 1e-6 + 1e-5 * ref[0].abs()))
+                    and bool(torch.all(el <= 1e-6 + 1e-5 * ref[1].abs()))):
+                raise AssertionError(
+                    f"B4 differs from its plain version at {label}, route "
+                    f"{want[0]}: accepts equal "
+                    f"{torch.equal(out[2], ref[2])}, stages equal "
+                    f"{torch.equal(out[3], ref[3])}, max |dx| "
+                    f"{float(ex.max()):.3g}, max |dlogp| "
+                    f"{float(el.max()):.3g}")
+            if nonfinite and int(out[3][5, 3]) == 1:
+                raise AssertionError("B4 accepted a non-finite proposal")
+            if outs and not all(torch.equal(a, b)
+                                for a, b in zip(outs[0], out)):
+                raise AssertionError(f"B4's routes differ at {label}")
+            outs.append(out)
+            errs[(n, d, K, kind, delayed)] = max(
+                errs.get((n, d, K, kind, delayed), 0.0), float(ex.max()),
+                float(el.max()))
     log(f"B4 fused_rw_chunk: same decisions as the plain version, x and "
-        f"logp within tolerance, in {len(cases) + 1} cases")
+        f"logp within tolerance, the routes bit-equal, in {len(cases) + 1} "
+        f"cases; forced runs by route: {json.dumps(runs)}")
+    if not all(runs.values()):
+        raise AssertionError(f"a route of B4 was not forced: {runs}")
 
-    def timed(n, d, K):
+    def operands(n, d, K):
         lp = b4_target("gaussian", d)
         x0, dy1, dy2, scal = b4_operands(n, d, K, seed=99, dev=dev)
-        lp0 = lp(x0)
+        return lp, x0, lp(x0), dy1, dy2, scal
+
+    def timed(n, d, K):
+        lp, x0, lp0, dy1, dy2, scal = operands(n, d, K)
         kernel = lambda: fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True)
         plain = lambda: fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp,
                                              True)
         times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
                  call_ms(kernel), call_ms(plain, reps=30, warmup=3))
         stage = kernel()[3]
-        n_evals = K * n + int((stage != 1).sum())    # stage 2 where needed
-        n_bytes = 4 * (n * d + n + 3 * K * n * d + 4 * K * n + d * d + d
-                       + 2 * K * n) + K * n
-        n_ops = n_evals * (2 * d * d + 3 * d) + 2 * K * n * d + 30 * K * n
-        return times, n_bytes, n_ops
+        return (times, *b4_work(n, d, K, stage)), fused_rw_chunk.last_plan
 
-    times, n_bytes, n_ops = timed(256, 100, 50)
+    def in_turns(n, d, K, routes):
+        """device ms of each route, in turns (a, b, b, a)"""
+        lp, x0, lp0, dy1, dy2, scal = operands(n, d, K)
+        run = lambda r: fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True,
+                                       route=r)
+        order = [routes[0], routes[1], routes[1], routes[0]]
+        ms = [device_ms(lambda r=r: run(r)) for r in order]
+        return {r: [ms[i] for i, o in enumerate(order) if o == r]
+                for r in routes}
+
+    (times, n_bytes, n_ops), wide_plan = timed(256, 100, 50)
     wide = kernel_record("fused_rw_chunk", "", "", None, times, n_bytes,
                          n_ops)
-    times, n_bytes, n_ops = timed(1, 2, C1_K)
+    wide_turns = in_turns(256, 100, 50, ["throughput", "global"])
+    log("B4 at the wide shape, device ms in turns (throughput, global, "
+        "global, throughput):", json.dumps(wide_turns))
+    large = {}
+    for d in (240, 300):
+        lp, x0, lp0, dy1, dy2, scal = operands(256, d, C1_K)
+        kernel = lambda: fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True)
+        ms = device_ms(kernel, reps=50, warmup=5)
+        n_bytes, n_ops = b4_work(256, d, C1_K, kernel()[3])
+        large[f"d{d}"] = {"shape": f"K={C1_K} n=256 d={d}, DR, correlated "
+                                   "Gaussian", "plan": fused_rw_chunk.last_plan,
+                          "ms": ms, "bound_ms": bound_ms(n_bytes, n_ops)}
+    log("B4 past the old limit:", json.dumps(large))
+    def step_us(n, d, k_lo, k_hi):
+        """µs a step: the slope of B4's device time from K = k_lo to
+        k_hi (DR), and what is left at K = k_lo (launch and prologue)"""
+        ms = {}
+        for K in (k_lo, k_hi):
+            lp, x0, lp0, dy1, dy2, scal = operands(n, d, K)
+            ms[K] = device_ms(lambda: fused_rw_chunk(x0, lp0, dy1, dy2,
+                                                     scal, lp, True))
+        slope = (ms[k_hi] - ms[k_lo]) / (k_hi - k_lo)
+        return {"us_a_step": slope * 1e3,
+                f"fixed_ms_at_K{k_lo}": ms[k_lo] - k_lo * slope,
+                "device_ms_by_K": ms}
+
+    floor = launch_floor(dev)
+    c1_slope, wide_slope = step_us(1, 2, C1_K, 4 * C1_K), step_us(256, 100,
+                                                                   10, C1_K)
+    log("B4's µs a step over K (config 1, the wide shape):",
+        json.dumps([c1_slope, wide_slope]))
+    (times, n_bytes, n_ops), c1_plan = timed(1, 2, C1_K)
     rec = kernel_record(
         "fused_rw_chunk", "bipymc_tpu_torch/csrc/fused_rw_chunk.cu",
         "bipymc_tpu/ops/fused_rw_chunk.py:148",
         errs[(1, 2, 50, "gaussian", True)], times, n_bytes, n_ops)
+    rec["plan"] = c1_plan
+    rec["us_a_step"] = rec["ms"] / C1_K * 1e3
+    rec["step_slope"] = c1_slope
+    rec["launch_floor_ms"] = floor["device_ms"]
+    rec["launch_floor_call_ms"] = floor["call_ms"]
     rec["wide_shape"] = {k: wide[k] for k in (
         "ms", "plain_ms", "call_ms", "plain_call_ms", "bound_ms",
         "bound_by")}
     rec["wide_shape"]["shape"] = "K=50 n=256 d=100, DR, correlated Gaussian"
+    rec["wide_shape"]["plan"] = wide_plan
     rec["wide_shape"]["max_abs_err"] = errs[(256, 100, 50, "gaussian", True)]
+    rec["wide_shape"]["routes_in_turns_ms"] = wide_turns
+    rec["wide_shape"]["step_slope"] = wide_slope
+    rec.update(large)
     return rec
 
 
@@ -1694,13 +1799,17 @@ def config1_path(dev):
               "acceptance": float(np.mean(s.acceptance_fraction)),
               "mean": mean.tolist(), "cov": cov.tolist(),
               "first_run_s": first_s, "timed_s": elapsed,
-              "launches": {"fused_rw_chunk": launches}}
+              "launches": {"fused_rw_chunk": launches},
+              "b4_plan": fused_rw_chunk.last_plan}
     log("config 1:", json.dumps(result))
     if not (np.all(np.abs(mean - np.array(C1_MEAN)) < 0.15)
             and np.all(np.abs(cov - np.array(C1_COV)) < 0.3)):
         raise AssertionError(f"config 1 posterior off the truth: mean "
                              f"{mean.tolist()}, cov {cov.tolist()}")
-    wall_us, _ = busy_share(s, n_units=10, per_unit=C1_K, unit="chunk")
+    wall_us, rows = busy_share(s, n_units=10, per_unit=C1_K, unit="chunk")
+    b4_us = kernel_us(rows, 10, "fused_rw_chunk_kernel")
+    log("config 1, B4:", json.dumps({"us_per_chunk": b4_us,
+                                     "us_per_step": b4_us / C1_K}))
 
     # the Welford replay and refresh of one chunk, alone
     st = s.final_state

@@ -12,7 +12,13 @@ atol 1e-6 and log_jac rtol 1e-5 / atol 1e-4 (tests/
 test_torch_dream_proposal.py gives the reasons). B4 must take the same
 accept decisions and stages as its plain version, with positions and
 logp within rtol 1e-5 / atol 1e-6 (the kernel sums over d in another
-order). B5 is held within atol 1e-3 of its plain version (tests/
+order), on the route it chooses and on every route forced that takes the
+shape, the launch's plan equal to ``ops/fused_rw_chunk.plan``'s and the
+routes' outputs equal bit for bit where two run; on the card
+``DreamZs(fused=True)`` and ``EnsembleSampler(fused=True)`` refuse at
+construction a 240-d Gaussian that B1 and B9 cannot hold, and
+``Dram(fused=True)`` runs it through B4's global route. B5 is held within
+atol 1e-3 of its plain version (tests/
 test_gp.py's bound for the reference's kernel), B6 within L atol
 5e-6·max|L| and z atol 1e-5·max|z| (tests/test_pallas_bchol.py's), with
 NaN in the same matrices and L bit-equal between its two entry points.
@@ -65,6 +71,8 @@ from bipymc_tpu_torch.ops.dream_proposal import dream_propose, propose_plain
 from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
 from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk, fused_chunk_plain,
                                               kernel_rng_draws)
+from bipymc_tpu_torch.ops import _build
+from bipymc_tpu_torch.ops import fused_rw_chunk as b4
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
@@ -249,23 +257,116 @@ def _b4_operands(n, d, K, seed, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "latency", "throughput", "global"])
 @pytest.mark.parametrize("n,d,K", [(1, 2, 50), (4, 2, 20), (37, 129, 7),
-                                   (256, 100, 50)])
+                                   (256, 100, 50), (2, 240, 5),
+                                   (256, 300, 4)])
 @pytest.mark.parametrize("kind", ["gaussian", "mixture"])
 @pytest.mark.parametrize("delayed", [False, True])
-def test_b4_kernel_matches_plain(cuda, n, d, K, kind, delayed):
+def test_b4_kernel_matches_plain(cuda, n, d, K, kind, delayed, route):
+    """B4 on the route it chooses and on each route forced, against its
+    plain version; the launch's plan equal to ``plan``'s, and a forced
+    route that does not take the shape refused."""
     lp = _b4_target(kind, d)
     x0, dy1, dy2, scal = _b4_operands(n, d, K, seed=n + d + K, device=cuda)
     lp0 = lp(x0)
     dy2 = dy2 if delayed else None
+    mixture = kind == "mixture"
+    expect = b4.plan(n, d, K, int(mixture), 4 if mixture else 0, route)
+    if expect is None:
+        with pytest.raises(ValueError, match="does not take"):
+            fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed, route=route)
+        return
     before = fused_rw_chunk.launches
-    out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed)
+    out = fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, delayed, route=route)
     torch.cuda.synchronize()
     assert fused_rw_chunk.launches == before + 1
+    assert fused_rw_chunk.last_plan == expect
     ref = fused_rw_chunk_plain(x0, lp0, dy1, dy2, scal, lp, delayed)
     assert torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
     torch.testing.assert_close(out[0], ref[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out[1], ref[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,K,kind", [(4, 2, 20, "gaussian"),
+                                        (3, 32, 9, "gaussian"),
+                                        (5, 33, 9, "gaussian"),
+                                        (256, 100, 50, "gaussian"),
+                                        (9, 128, 6, "gaussian"),
+                                        (4, 2, 20, "mixture"),
+                                        (6, 31, 8, "mixture"),
+                                        (8, 2, 20, "nonfinite")])
+def test_b4_routes_agree_bit_for_bit(cuda, n, d, K, kind):
+    """Every route that takes the shape computes the target in one order:
+    equal outputs, a non-finite proposal rejected on each."""
+    lp = _b4_target("mixture" if kind == "mixture" else "gaussian", d)
+    x0, dy1, dy2, scal = _b4_operands(n, d, K, seed=7 * d + K, device=cuda)
+    if kind == "nonfinite":
+        dy1[5, 3] = torch.inf
+    lp0 = lp(x0)
+    mixture = int(kind == "mixture")
+    routes = [r for r in b4.ROUTES
+              if b4.plan(n, d, K, mixture, 4 * mixture, r) is not None]
+    assert len(routes) >= 2
+    outs = []
+    for route in routes:
+        outs.append(fused_rw_chunk(x0, lp0, dy1, dy2, scal, lp, True,
+                                   route=route))
+        assert fused_rw_chunk.last_plan[0] == route
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for a, b in zip(outs[0], out):
+            assert torch.equal(a, b)
+    if kind == "nonfinite":
+        assert int(outs[0][3][5, 3]) != 1
+    assert 0 < float(outs[0][2].float().mean()) < 1
+
+
+@pytest.mark.cuda
+def test_b4_plan_matches_the_launch(cuda):
+    """``plan`` mirrors ``csrc/fused_rw_chunk.cu::rw_plan`` (the entry
+    point the wrapper asks before each launch) over a grid of shapes."""
+    fn = _build.library("fused_rw_chunk_plan")
+    import ctypes
+    for n in (1, 2, 37, 127, 128, 256, 300, 1024, 4096):
+        for d in (1, 2, 31, 32, 33, 100, 128, 129, 240, 300, 513, 2000):
+            for K in (1, 5, 50, 200):
+                for kind, n_modes in ((0, 0), (1, 4), (1, 16), (1, 17)):
+                    for route in (None, *b4.ROUTES):
+                        out = (ctypes.c_int * 6)()
+                        err = fn(n, d, K, kind, n_modes,
+                                 -1 if route is None else
+                                 b4.ROUTES.index(route),
+                                 ctypes.addressof(out))
+                        want = b4.plan(n, d, K, kind, n_modes, route)
+                        got = None if err else (b4.ROUTES[out[0]],
+                                                *out[1:4],
+                                                b4.STAGING[out[4]])
+                        assert got == want, (n, d, K, kind, n_modes, route)
+
+
+@pytest.mark.cuda
+def test_fused_samplers_refuse_what_b1_and_b9_cannot_hold(cuda):
+    """On the card, ``DreamZs(fused=True)`` and
+    ``EnsembleSampler(fused=True)`` refuse at construction a 240-d
+    Gaussian that B1 and B9 cannot hold in shared memory; ``Dram(fused=
+    True)`` takes it (B4's global route), and the fused engine runs."""
+    d = 240
+    lp = _b4_target("gaussian", d)
+    for rng in ("stream", "kernel"):
+        with pytest.raises(ValueError, match="up to d=23"):
+            bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng,
+                       device=cuda)
+    with pytest.raises(ValueError, match="up to d=236"):
+        bt.EnsembleSampler(lp, n_chains=32, fused=True, device=cuda)
+    s = bt.Dram(lp, seed=0, n_chains=2, fused=True, t0=20,
+                adapt_interval=10, device=cuda)
+    before = fused_rw_chunk.launches
+    s.run_mcmc(30, np.zeros(d), cov_est=np.eye(d) * 0.01)
+    assert fused_rw_chunk.launches - before == 3
+    assert fused_rw_chunk.last_plan[0] == "global"
+    assert np.all(np.isfinite(s.get_chain()))
 
 
 @pytest.mark.cuda
@@ -294,6 +395,8 @@ def test_b4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_rw_chunk(x0, lp(x0), dy1.transpose(0, 1).contiguous()
                        .transpose(0, 1), dy2, scal, lp, True)
+    with pytest.raises(ValueError, match="route"):
+        fused_rw_chunk(x0, lp(x0), dy1, dy2, scal, lp, True, route="l2")
 
 
 @pytest.mark.cuda

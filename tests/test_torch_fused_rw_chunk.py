@@ -10,21 +10,30 @@ identically by both. On the CPU the wrapper takes the plain version; on
 a device with no kernel it raises.
 """
 
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import bipymc_tpu_torch as bt
+
 from bipymc_tpu.models import targets as jtargets
 from bipymc_tpu.ops.fused_chunk import block_logp_from_scalar
 from bipymc_tpu.ops.fused_rw_chunk import fused_rw_chunk_pallas
 from bipymc_tpu_torch.models import targets
+from bipymc_tpu_torch.ops import fused_chunk, fused_stretch
+from bipymc_tpu_torch.ops import fused_rw_chunk as b4
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
 
 torch.set_num_threads(2)
 
 KAPPA_ISK = float(np.float32(1.0) / np.sqrt(np.float32(5.0)))
+CSRC = Path(b4.__file__).resolve().parents[1] / "csrc"
 
 
 def _operands(n, d, K, seed, scale=0.9):
@@ -145,3 +154,176 @@ def test_wrapper_takes_plain_on_cpu_and_raises_elsewhere():
     mix = targets.gaussian_mixture(np.zeros((17, 2)))
     with pytest.raises(ValueError, match="at most 16 modes"):
         fused_rw_chunk(*meta, mix, True)
+
+
+@pytest.mark.parametrize("delayed", [False, True])
+def test_plain_matches_pallas_interpret_at_d240(delayed):
+    """A Gaussian past the old shared-memory limit of the port's B4
+    (d = 239): the function B4 must now compute there is the
+    reference's."""
+    test_plain_matches_pallas_interpret(delayed, 2, 240, 3)
+
+
+def _c_plans(queries, tmp_path):
+    """``csrc/fused_rw_plan.cuh::rw_plan`` built with the host's C++
+    compiler, run on each (n, d, K, kind, n_modes, force) at the H100's
+    shared memory: its plan as ``plan`` writes it, or None."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the C plan with")
+    src = tmp_path / "plan.cpp"
+    src.write_text(
+        '#include <cstdio>\n#include "fused_rw_plan.cuh"\n'
+        "int main() {\n  int q[7];\n"
+        '  while (std::scanf("%d %d %d %d %d %d %d", q, q + 1, q + 2, q + 3,'
+        " q + 4, q + 5, q + 6) == 7) {\n"
+        "    b4plan::Plan p;\n"
+        "    if (!b4plan::rw_plan(q[0], q[1], q[2], q[3], q[4], q[5], q[6],"
+        " &p))\n"
+        '      std::puts("None");\n'
+        "    else\n"
+        '      std::printf("%d %d %d %zu %d\\n", p.route, p.cpb, p.threads,'
+        " p.smem, p.stage);\n  }\n}\n")
+    exe = tmp_path / "plan"
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{CSRC}", str(src), "-o",
+                    str(exe)], check=True, capture_output=True, timeout=120)
+    text = "".join(f"{n} {d} {K} {kind} {m} {f} {b4.MAX_SHARED_BYTES}\n"
+                   for n, d, K, kind, m, f in queries)
+    out = subprocess.run([str(exe)], input=text, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    plans = []
+    for line in out.splitlines():
+        if line == "None":
+            plans.append(None)
+            continue
+        route, cpb, threads, smem, stage = map(int, line.split())
+        plans.append((b4.ROUTES[route], cpb, threads, smem,
+                      b4.STAGING[stage]))
+    return plans
+
+
+def test_plan_matches_the_c_plan(tmp_path):
+    """``plan`` mirrors the C plan the launch makes, over a grid of
+    shapes, targets and forced routes."""
+    queries = [(n, d, K, kind, m, force)
+               for n in (1, 2, 37, 127, 128, 256, 1000, 1024, 5000)
+               for d in (1, 2, 31, 32, 33, 100, 128, 129, 240, 300, 513,
+                         5000)
+               for K in (1, 5, 50, 200)
+               for kind, m in ((0, 0), (1, 4), (1, 16), (1, 17))
+               for force in (-1, 0, 1, 2)]
+    want = [b4.plan(n, d, K, kind, m, None if f < 0 else b4.ROUTES[f])
+            for n, d, K, kind, m, f in queries]
+    assert _c_plans(queries, tmp_path) == want
+    assert sum(p is None for p in want) > 0
+
+
+@pytest.mark.parametrize("n,d,K,kind,route,cpb,staging", [
+    (1, 2, 50, 0, "latency", 1, "whole"),         # config 1
+    (256, 100, 50, 0, "throughput", 2, "whole"),  # the wide shape
+    (256, 300, 4, 0, "global", 2, "none"),
+    (2, 240, 5, 0, "global", 1, "none"),
+    (256, 2, 50, 1, "latency", 2, "whole"),
+    (256, 100, 50, 1, "global", 2, "none"),
+    (4096, 128, 50, 0, "throughput", 8, "ring"),
+    (4096, 128, 3, 0, "throughput", 8, "whole"),
+    (37, 129, 7, 0, "global", 1, "none"),
+])
+def test_plan_routes(n, d, K, kind, route, cpb, staging):
+    """The route each shape takes, its chains a block and its staging;
+    at n = 256, 128 blocks; the routes that do not take a shape."""
+    m = 4 if kind else 0
+    p = b4.plan(n, d, K, kind, m)
+    assert (p[0], p[1], p[4]) == (route, cpb, staging)
+    assert p[3] <= b4.MAX_SHARED_BYTES and p[2] % 32 == 0
+    if n == 256:
+        assert -(-n // p[1]) == 128
+    assert (b4.plan(n, d, K, kind, m, "latency") is None) == (d > 32)
+    assert (b4.plan(n, d, K, kind, m, "throughput") is None) == (
+        kind == 1 or d > 128)
+    assert b4.plan(n, d, K, kind, m, "global")[0] == "global"
+    assert b4.plan(n, d, K, 1, 17) is None
+
+
+def _b1_meta(G, n, d, rng):
+    meta = dict(device="meta", dtype=torch.float32)
+    draws = [torch.empty((G, n, d), **meta) for _ in range(3)]
+    if rng == "kernel":
+        draws = [None] * 3
+    return (torch.empty((n, d), **meta), torch.empty((n,), **meta),
+            torch.empty((G, n, 6, d), **meta), *draws,
+            torch.empty((G, n, 6), **meta))
+
+
+@pytest.mark.parametrize("rng,limit", [("stream", 238), ("kernel", 237)])
+def test_b1_limit_is_the_wrappers_check(rng, limit):
+    """B1's limit for the correlated Gaussian, which
+    ``DreamZs(fused=True)`` checks at construction on a CUDA device, is
+    the wrapper's own: at d − 1 the wrapper goes on to its device check,
+    at d it refuses with the same message."""
+    kw = dict(n_pairs=3, b=1e-4, b_star=1e-6, rng=rng)
+    if rng == "kernel":
+        kw.update(run_key=1, t0=0)
+    for d, fits in ((limit, True), (limit + 1, False)):
+        lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
+        ops = _b1_meta(2, 3, d, rng)
+        if fits:
+            fused_chunk.check_target_fits(0, d, 0, rng)
+            with pytest.raises(ValueError, match="no kernel for device"):
+                fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
+        else:
+            with pytest.raises(ValueError, match=f"up to d={limit}") as e:
+                fused_chunk.check_target_fits(0, d, 0, rng)
+            with pytest.raises(ValueError) as w:
+                fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
+            assert str(w.value) == str(e.value)
+            assert f"{fused_chunk.shared_bytes(0, d, 0, rng)} bytes" in str(
+                e.value)
+
+
+@pytest.mark.parametrize("n,limit", [(32, 236), (256, 236), (512, 231),
+                                     (1024, 225)])
+def test_b9_limit_is_the_plans(n, limit):
+    """B9's limit for the correlated Gaussian, which
+    ``EnsembleSampler(fused=True)`` checks at construction on a CUDA
+    device, is where its plan (the wrapper's check) finds no route."""
+    assert fused_stretch.plan(n, limit, 0) is not None
+    assert fused_stretch.plan(n, limit + 1, 0) is None
+    fused_stretch.check_target_fits(n, limit, 0)
+    with pytest.raises(ValueError, match=f"up to d={limit}"):
+        fused_stretch.check_target_fits(n, limit + 1, 0)
+
+
+def test_fused_samplers_refuse_at_construction_for_cuda():
+    """On a CUDA device, ``DreamZs(fused=True)`` and
+    ``EnsembleSampler(fused=True)`` refuse a 240-d Gaussian as they are
+    built (nothing touches the card); on the CPU the plain versions take
+    it, and ``Dram(fused=True)``, whose B4 takes any d, is built on
+    either."""
+    d = 240
+    lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
+    for rng in ("stream", "kernel"):
+        with pytest.raises(ValueError, match="kernel B1"):
+            bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng,
+                       device="cuda")
+        bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng, device="cpu")
+    with pytest.raises(ValueError, match="kernel B9"):
+        bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cuda")
+    bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cpu")
+    for device in ("cuda", "cpu"):
+        bt.Dram(lp, n_chains=2, fused=True, device=device)
+    small = targets.correlated_gaussian(np.zeros(8), np.eye(8))
+    bt.DreamZs(small, n_chains=32, fused=True, device="cuda")
+    bt.EnsembleSampler(small, n_chains=32, fused=True, device="cuda")
+
+
+def test_max_d_is_where_the_plan_ends():
+    """B4 takes the correlated Gaussian up to ``max_d`` (its residuals in
+    shared memory), 87 × the 239 of the kernel before the routes, and the
+    mixture at any d."""
+    limit = b4.max_d(0)
+    assert limit == 20832
+    assert b4.plan(1, limit, 50, 0) is not None
+    assert b4.plan(1, limit + 1, 50, 0) is None
+    assert b4.max_d(1, 16) is None
+    assert b4.plan(1, 100_000, 50, 1, 16)[0] == "global"
