@@ -3,8 +3,8 @@
 // Replaces bipymc_tpu/ops/dream_proposal.py::dream_propose_pallas (the
 // pallas_call at :155). Plain version: bipymc_tpu_torch/ops/
 // dream_proposal.py::propose_block. The per-chain math is
-// dream_propose.cuh::propose_chain, which kernel B1 (fused_chunk.cu)
-// runs too, so the two engines share one copy of it.
+// dream_propose.cuh::propose_chain; kernel B1 (fused_chunk.cu) forms the
+// same proposal, its state-free part ahead of the generations.
 //
 // What bounds it on the H100: the launch. At the main path's 256 chains x
 // d = 100 with k = 6 archive rows it moves 1.1 MB (about 0.34 us of HBM

@@ -1,6 +1,8 @@
-// The DREAM-zs proposal for one chain, computed by one block; shared by
-// kernels B2 (dream_proposal.cu, one generation) and B1 (fused_chunk.cu,
-// G generations per launch).
+// The DREAM-zs proposal for one chain, computed by one block: kernel B2's
+// (dream_proposal.cu, one generation). Kernel B1 (fused_chunk.cu, G
+// generations a launch) takes min_first from here and forms the same
+// proposal split in two: the part that needs no x ahead of the
+// generations, the rest in them.
 //
 // Plain version: bipymc_tpu_torch/ops/dream_proposal.py::propose_block,
 // whose math this follows: the masked sum over delta DE pairs, the

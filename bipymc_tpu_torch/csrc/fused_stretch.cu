@@ -193,7 +193,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Copy the target's constants into shared s_c. kind 0: c0 = mean [d],
 // c1 = inv [d, d]; s_c holds inv transposed, [d, ldc] (row i = column i of
 // inv), then the mean [ldc], zero past d. kind 1: c0 = means [n_modes, d]
-// as target.cuh::load_target copies them, c1 = log_w [n_modes] (global).
+// row after row, c1 = log_w [n_modes] (global).
 // The caller syncs the block before use.
 __device__ bipymc::Target load_group_target(int kind, const float* c0,
                                             const float* c1, int n_modes,
@@ -226,7 +226,7 @@ __device__ bipymc::Target load_group_target(int kind, const float* c0,
 // log density of y, y_at(j) its j-th coordinate, evaluated by one group
 // of L lanes (gl this lane's index in it); r is the group's [ldc] shared
 // scratch (kind 0). Every lane of the group returns the same value. The
-// sums are target.cuh::eval_target's, term by term: kind 0 s_i =
+// sums, term by term: kind 0 s_i =
 // sum_j r_j inv[j, i] and q = sum_i s_i r_i, one fmaf a term in index
 // order; kind 1 per-mode squared distances.
 template <typename Y>

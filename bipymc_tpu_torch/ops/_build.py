@@ -55,7 +55,7 @@ SIGNATURES = {
     "fused_chunk": ("fused_chunk_launch",
                     [_P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _U64, _L,
                      _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
-                     _I, _F, _F, _P, _P, _P, _P]),
+                     _I, _F, _F, _I, _P, _P, _P, _P, _P]),
     "fused_stretch": ("fused_stretch_launch",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F,
                        _P, _P, _P, _I, _P, _P]),
@@ -75,6 +75,8 @@ SIGNATURES = {
 ENTRY_POINTS = {
     "fused_rw_chunk_plan": ("fused_rw_chunk", "fused_rw_chunk_plan",
                             [_I, _I, _I, _I, _I, _I, _P]),
+    "fused_chunk_plan": ("fused_chunk", "fused_chunk_plan",
+                         [_I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 

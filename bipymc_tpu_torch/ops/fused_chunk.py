@@ -15,11 +15,12 @@ Four functions:
 
 - :func:`fused_chunk` launches ``csrc/fused_chunk.cu``, which evaluates
   the built-in targets' kernel forms (``models/targets.py``,
-  ``csrc/target.cuh``). It raises ``ValueError`` for a tensor that is not
-  on a CUDA device, a target with no kernel form or a mixture of more
-  than 16 modes, and a dtype other than float32; it never takes the plain
-  version. ``fused_chunk.launches`` counts its launches in either mode,
-  ``fused_chunk.kernel_rng_launches`` those in kernel-RNG mode.
+  ``csrc/target.cuh``) at any d. It raises ``ValueError`` for a tensor
+  that is not on a CUDA device, a target with no kernel form or a mixture
+  of more than 16 modes, and a dtype other than float32; it never takes
+  the plain version. ``fused_chunk.launches`` counts its launches in
+  either mode, ``fused_chunk.kernel_rng_launches`` those in kernel-RNG
+  mode.
 - :func:`fused_chunk_plain` is the same function in torch ops, a loop
   over G of ``ops/dream_proposal.propose_plain``, the target and
   :func:`metropolis_select`, which is also the per-generation engine's
@@ -29,6 +30,17 @@ Four functions:
   :func:`fused_chunk_plain`.
 - :func:`run_fused_chunk` dispatches: the kernel for CUDA tensors, the
   plain version for CPU tensors. The fused runner calls only it.
+
+The kernel has two routes, chosen in one place in C
+(``csrc/fused_chunk_plan.cuh::chunk_plan``): the shared route (the
+target's constants in shared memory once a block, every generation's
+inputs staged there before the generations run; config 3's) and the
+global route (the constants read from device memory, the Gaussian's
+inverse through a ring in shared memory: the Gaussian past d ≈ 235, the
+mixture where its means do not fit). :func:`plan` mirrors the choice,
+for the CPU tests and for printing, and ``fused_chunk.last_plan`` is
+what the last launch took. The routes compute in one order, so their
+outputs are equal bit for bit.
 
 In kernel-RNG mode ``test_bits`` (three ``[G, n, d]`` int32 blocks)
 replace the Philox words and go through the same conversions, so a test
@@ -42,6 +54,8 @@ constants into kernel operands and keep a jit cache stable; here the
 kernel reads the target's constants from its kernel form.
 """
 
+import ctypes
+
 import torch
 
 from bipymc_tpu_torch.core.rng import (bits_to_uniform, kernel_draw_bits,
@@ -53,42 +67,67 @@ from bipymc_tpu_torch.ops.dream_proposal import propose_plain
 # lanes of the packed per-chain scalars [G, n, 6]
 S_DELTA, S_CR, S_GS, S_SNK, S_GJUMP, S_LOGU = 0, 1, 2, 3, 4, 5
 N_SCAL = 6
-_MAX_WARPS = 4                   # kMaxWarps in csrc/block_reduce.cuh
-# bytes of dynamic shared memory a block may use: the card's 232448 less
-# the kernel's static scratch, float[kMaxWarps * kMaxModes] for the
-# target and six [kMaxWarps] arrays for the proposal
-_MAX_SMEM = 232448 - 4 * _MAX_WARPS * MAX_MODES - 4 * 6 * _MAX_WARPS
+
+ROUTES = ("shared", "global")
+STAGING = ("none", "batch", "whole")
+# The H100's shared memory a block may opt in to, bytes (the entry point
+# reads the card's own figure)
+MAX_SHARED_BYTES = 232_448
+# csrc/fused_chunk_plan.cuh's constants (kThreads, kMaxCpb, kCpbN,
+# kGlobalCpb, kTJ, kTiles, kGroup, kScalPad, kDraws, kWorkVecs)
+_THREADS = 256
+_MAX_CPB, _CPB_N, _GLOBAL_CPB = 8, 128, 4   # chains a block: n // 128
+_TJ, _TILES, _GROUP = 8, 8, 128   # the global route's ring of inv tiles
+_SCAL_PAD, _DRAWS, _WORK_VECS = 8, 3, 3
 
 
-def shared_bytes(kind: int, d: int, n_modes: int, rng="stream") -> int:
-    """Bytes of dynamic shared memory a block of B1 takes: the target's
-    constants (d² + d floats for the correlated Gaussian, kind 0;
-    ``n_modes``·d for the mixture, kind 1) and a chain's rows (3·d floats,
-    6·d in kernel-RNG mode)."""
-    n_const = d * d + d if kind == 0 else n_modes * d
-    return 4 * (n_const + (6 * d if rng == "kernel" else 3 * d))
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
 
 
-def check_target_fits(kind: int, d: int, n_modes: int, rng="stream"):
-    """Raise ``ValueError`` where B1 cannot hold the target's constants
-    and a chain's rows in shared memory, naming the bytes and the largest
-    d it takes; the wrapper's own check and ``DreamZs(fused=True)`` on a
-    CUDA device both call it. The plain version takes any d."""
-    need = shared_bytes(kind, d, n_modes, rng)
-    if need <= _MAX_SMEM:
-        return
-    lo, hi = 0, d                  # fits at lo, not at hi
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        if shared_bytes(kind, mid, n_modes, rng) <= _MAX_SMEM:
-            lo = mid
-        else:
-            hi = mid
-    raise ValueError(
-        f"kernel B1 ({rng} mode) keeps the target's constants and a "
-        f"chain's rows in shared memory: at d={d} they take {need} bytes, "
-        f"more than the {_MAX_SMEM} a block may use; it takes this target "
-        f"up to d={lo} (the plain version, on the CPU, takes any d)")
+def plan(n: int, d: int, G: int, n_pairs: int, kind: int, n_modes: int = 0,
+         route=None):
+    """The launch ``csrc/fused_chunk_plan.cuh::chunk_plan`` makes for n
+    chains in d dimensions, G generations, ``n_pairs`` DE pairs, on target
+    ``kind`` (0 the correlated Gaussian, 1 the mixture of ``n_modes``):
+    ``(route, chains a block, threads, shared bytes, staging, generations
+    a batch)``. The shared route keeps the target's constants in shared
+    memory, with staging ``"whole"`` (every generation's inputs staged at
+    the start) or ``"batch"`` (as many generations a batch as fit); the
+    global route (staging ``"none"``) reads them from device memory.
+    ``route=None`` takes the shared route where it fits
+    :data:`MAX_SHARED_BYTES`, else the global one. None where the route
+    asked for does not take the shape, or for a mixture of more than
+    ``MAX_MODES`` modes."""
+    if kind == 1 and not 1 <= n_modes <= MAX_MODES:
+        return None
+    ld = _round_up(d, 4)
+    # rows, the prepared vector, the draws (4 floats over), scal
+    slot = (max(2 * n_pairs, 3) + 1 + _DRAWS) * ld + 4 * _DRAWS + _SCAL_PAD
+    room = MAX_SHARED_BYTES // 4
+    if route != "global":
+        consts = (d + 1) * ld if kind == 0 else n_modes * ld
+        vecs = 3 if kind == 0 else 2       # x, y (and r, the Gaussian)
+        cpb0 = min(max(n // _CPB_N, 1), _MAX_CPB)
+        for whole in (True, False):
+            for cpb in range(cpb0, 0, -1):
+                fixed = MAX_MODES + consts + cpb * vecs * ld
+                if fixed > room:
+                    continue
+                gens = min((room - fixed) // (cpb * slot), G)
+                if gens < (G if whole else 1):
+                    continue
+                return ("shared", cpb, _THREADS,
+                        4 * (fixed + cpb * gens * slot),
+                        "whole" if gens == G else "batch", gens)
+        if route == "shared":
+            return None
+    ring = _TILES * _TJ * _GROUP if kind == 0 else 0
+    for cpb in range(min(max(n // _CPB_N, 1), _GLOBAL_CPB), 0, -1):
+        if MAX_MODES + cpb * ring <= room:
+            return ("global", cpb, _THREADS, 4 * (MAX_MODES + cpb * ring),
+                    "none", G)
+    return None
 
 
 def metropolis_select(x, lp, x_star, lp_star, log_jac, log_u):
@@ -153,7 +192,7 @@ def fused_chunk_kernel_rng_plain(x0, logp0, rows, scal, log_prob, *,
 
 def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
                 n_pairs, d_true, b, b_star, rng="stream", run_key=None,
-                t0=None, test_bits=None):
+                t0=None, test_bits=None, route=None):
     """Advance G generations in one launch of kernel B1: returns (x_hist
     [G, n, d], logp_hist [G, n], accepted [G, n] bool).
 
@@ -169,19 +208,38 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
     run's 64-bit key) and ``t0 + g`` (``core/rng.kernel_draw_bits``), or
     converts ``test_bits`` (three contiguous [G, n, d] int32 blocks)
     where given.
+
+    ``route`` forces one of :data:`ROUTES`, for the checks that hold the
+    routes together and for timings in turns; a forced route that does
+    not take the shape raises ``ValueError``. The samplers never pass it.
     """
     G, n, k, d = _check_shapes(x0, logp0, rows, u_mask, u_e, eps, scal,
                                n_pairs, rng, run_key, t0, test_bits)
+    if route not in (None, *ROUTES):
+        raise ValueError(f"route={route!r}: expected None or one of "
+                         f"{ROUTES}")
     kind, c0, c1, n_modes, f0, f1 = kernel_operands(log_prob, x0.device, d,
                                                     "fused_chunk")
     kernel_rng = rng == "kernel"
-    check_target_fits(kind, d, n_modes, rng)
     lds = _check_operands(x0, logp0, rows, u_mask, u_e, eps, scal,
                           test_bits)
+    force = -1 if route is None else ROUTES.index(route)
+    chosen = (ctypes.c_int * 7)()
+    err = _build.library("fused_chunk_plan")(
+        n, d, G, n_pairs, kind, n_modes, force, ctypes.addressof(chosen))
+    if err == _build.ERR_SHARED_MEMORY:
+        raise ValueError(f"route={route!r} does not take n={n}, d={d}, "
+                         f"G={G} on this target (see ops/fused_chunk.plan)")
+    _build.check(err, "fused_chunk")
     dev = x0.device
     x_hist = torch.empty((G, n, d), dtype=torch.float32, device=dev)
     lp_hist = torch.empty((G, n), dtype=torch.float32, device=dev)
     acc_hist = torch.empty((G, n), dtype=torch.bool, device=dev)
+    # the global route's workspace: a chain's x, y, r and each
+    # generation's draws and prepared vector
+    work = (torch.empty((n, _WORK_VECS + _DRAWS * G, chosen[6]),
+                        dtype=torch.float32, device=dev)
+            if ROUTES[chosen[0]] == "global" else None)
     ptr = lambda a: None if a is None else a.data_ptr()
     tb = test_bits or (None, None, None)
     err = _build.library("fused_chunk")(
@@ -189,10 +247,12 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
         lds[0], ptr(u_e), lds[1], ptr(eps), lds[2], int(kernel_rng),
         int(run_key or 0), int(t0 or 0), *(ptr(a) for a in tb),
         scal.data_ptr(), G, n, d, n_pairs, (d_true - 1) * 0.5, b, b_star,
-        kind, c0.data_ptr(), c1.data_ptr(), n_modes, f0, f1,
-        x_hist.data_ptr(), lp_hist.data_ptr(), acc_hist.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        kind, c0.data_ptr(), c1.data_ptr(), n_modes, f0, f1, chosen[0],
+        ptr(work), x_hist.data_ptr(), lp_hist.data_ptr(),
+        acc_hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_chunk")
+    fused_chunk.last_plan = (ROUTES[chosen[0]], *chosen[1:4],
+                             STAGING[chosen[4]], chosen[5])
     fused_chunk.launches += 1
     fused_chunk.kernel_rng_launches += kernel_rng
     return x_hist, lp_hist, acc_hist
@@ -200,6 +260,7 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
 
 fused_chunk.launches = 0
 fused_chunk.kernel_rng_launches = 0
+fused_chunk.last_plan = None
 
 
 def run_fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,

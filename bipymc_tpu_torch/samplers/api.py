@@ -29,7 +29,7 @@ import torch
 from bipymc_tpu_torch.core.rng import StepWords, seed_ints
 from bipymc_tpu_torch.models.targets import (KERNEL_TARGETS, kernel_form,
                                              kernel_shape)
-from bipymc_tpu_torch.ops import fused_chunk, fused_stretch
+from bipymc_tpu_torch.ops import fused_stretch
 from bipymc_tpu_torch.ops.fused_stretch import check_walkers
 from bipymc_tpu_torch.parallel.pool import ChainPool
 from bipymc_tpu_torch.samplers import dream, rw, stretch
@@ -392,9 +392,6 @@ class DreamZs(McmcSampler):
                     f"{', '.join(KERNEL_TARGETS)} "
                     "(bipymc_tpu_torch.models.targets); run other targets "
                     "with fused=False")
-            if self.device.type == "cuda":
-                fused_chunk.check_target_fits(*kernel_shape(log_like_fn),
-                                              rng=fused_rng)
         self._pool_obj = ChainPool(
             step=dream.make_step(log_like_fn, self.cfg),
             n_words=lambda d: dream.n_words(self.cfg, d),

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Kernel B1 in stream mode from two checkouts of the port, on one card.
+"""Kernel B1 from two checkouts of the port, on one card, in either mode.
 
 Holds one tree's B1 against another's (a parent commit unpacked with
 ``git archive`` beside this one) on the same operands: config 3's first
 fused chunk after its 500 burn-in generations, [G, n, k, d] =
-[10, 256, 6, 100]. It checks that a change to B1 left stream mode's
-decisions and device time as they were, which ``chip_smoke.py`` (one
-tree) cannot. Run the trees in turns, each ``run`` its own process (each
-imports its own ``bipymc_tpu_torch`` and builds its own kernels), from
-the root of the checkout::
+[10, 256, 6, 100], in stream mode (the chunk's draws) or kernel-RNG mode
+(its rows and scalars, the main path's run key, t0 = 500). It checks
+what a change to B1 did to its decisions and device time, which
+``chip_smoke.py`` (one tree) cannot. Run the trees in turns, each
+``run`` its own process (each imports its own ``bipymc_tpu_torch`` and
+builds its own kernels), from the root of the checkout::
 
     python bipymc_tpu_torch/tools/b1_turns.py ops OPS.pt
     python bipymc_tpu_torch/tools/b1_turns.py run PARENT_ROOT OPS.pt p1.pt
@@ -17,12 +18,13 @@ the root of the checkout::
     python bipymc_tpu_torch/tools/b1_turns.py run PARENT_ROOT OPS.pt p2.pt
     python bipymc_tpu_torch/tools/b1_turns.py compare p1.pt c1.pt c2.pt p2.pt
 
-``ops`` makes the operands with this checkout's package; ``run`` prints
-one JSON line with B1's device time a launch (the kernels' own durations
-from ``torch.profiler`` over 200 launches after 20 of warm-up, as
-``chip_smoke.py`` times it) and saves the outputs; ``compare`` holds
-every run's accept bits, x and logp to the first's and prints one JSON
-line. Needs a CUDA card.
+and the same with ``kernel`` after each ``run``'s output file for
+kernel-RNG mode. ``ops`` makes the operands of both modes with this
+checkout's package; ``run`` prints one JSON line with B1's device time a
+launch (the kernels' own durations from ``torch.profiler`` over 200
+launches after 20 of warm-up, as ``chip_smoke.py`` times it) and saves
+the outputs; ``compare`` holds every run's accept bits, x and logp to
+the first's and prints one JSON line. Needs a CUDA card.
 """
 
 import json
@@ -46,7 +48,8 @@ def _package(root):
 
 def make_ops(out):
     bt = _package(HERE)
-    from bipymc_tpu_torch.samplers.dream_fused import chunk_operands
+    from bipymc_tpu_torch.samplers.dream_fused import (
+        chunk_operands, chunk_operands_kernel_rng)
 
     dev = torch.device("cuda", 0)
     means = bt.baseline_config3_means(D)
@@ -58,8 +61,11 @@ def make_ops(out):
     s.run_mcmc(BURNIN, theta0)
     st = s.final_state
     ops = chunk_operands(st, s._words, BURNIN, s.cfg)
+    rows, scal, _ = chunk_operands_kernel_rng(st, s._words, BURNIN, s.cfg)
     torch.save({"x0": st.x.cpu(), "lp0": st.logp.cpu(),
-                "ops": [a.contiguous().cpu() for a in ops]}, out)
+                "ops": [a.contiguous().cpu() for a in ops],
+                "kernel_ops": [rows.cpu(), scal.cpu()],
+                "key": s._words.key}, out)
 
 
 def device_ms(fn, reps=200, warmup=20):
@@ -81,21 +87,27 @@ def device_ms(fn, reps=200, warmup=20):
     return us / reps / 1e3
 
 
-def run(root, ops_path, out):
+def run(root, ops_path, out, mode="stream"):
     bt = _package(root)
     from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
 
     dev = torch.device("cuda", 0)
     saved = torch.load(ops_path)
     x0, lp0 = saved["x0"].to(dev), saved["lp0"].to(dev)
-    ops = [a.to(dev) for a in saved["ops"]]
     lp = bt.gaussian_mixture(bt.baseline_config3_means(D), sigma=1.0)
-    call = lambda: fused_chunk(x0, lp0, *ops, lp, **KW)
+    if mode == "kernel":
+        rows, scal = (a.to(dev) for a in saved["kernel_ops"])
+        call = lambda: fused_chunk(x0, lp0, rows, None, None, None, scal, lp,
+                                   rng="kernel", run_key=saved["key"],
+                                   t0=BURNIN, **KW)
+    else:
+        ops = [a.to(dev) for a in saved["ops"]]
+        call = lambda: fused_chunk(x0, lp0, *ops, lp, **KW)
     res = call()
     torch.cuda.synchronize()
     ms = device_ms(call)
     torch.save([a.cpu() for a in res], out)
-    print(json.dumps({"root": root, "b1_stream_device_ms": ms,
+    print(json.dumps({"root": root, "mode": mode, "b1_device_ms": ms,
                       "acceptance": float(res[2].float().mean()),
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 

@@ -83,19 +83,26 @@ non-zero:
    archive after its 500 burn-in generations; and at ragged shapes (n = 7,
    d = 3, G = 1 on both targets with a kernel form; G = 10, n = 37,
    d = 129 on the correlated Gaussian), and with a non-finite archive row
-   that must be rejected. Accept bits equal, except where the plain
-   version's |log u − log α| < 1e-4 (counted and printed; that chain's
-   later generations are then left out); x and logp within ``B1_TOL``.
-   Timed at config 3's shape. Then B1 in kernel-RNG mode (Philox drawn in
-   the kernel) against its plain version on the same words
+   that must be rejected, and the correlated Gaussian past B1's shared
+   route at G = 10, n = 256, d in {240, 300}. Accept bits equal, except
+   where the plain version's |log u − log α| < 1e-4 (counted and
+   printed; that chain's later generations are then left out); x and
+   logp within ``B1_TOL``. Each case's launch must take
+   ``ops/fused_chunk.plan``'s launch (printed), and every route forced
+   that takes the shape (shared, global) must give the chosen route's
+   outputs bit for bit. Timed at config 3's shape (the two routes in
+   turns: shared, global, global, shared) and at d = 240 and 300 beside
+   their bounds. Then B1 in kernel-RNG mode (Philox drawn in the kernel)
+   against its plain version on the same words
    (``core/rng.kernel_draw_bits``), on the kernel-RNG runner's own
    config-3 operands under the main path's run key from its first chunk
-   (t0 = 500), and on the same ragged and non-finite cases under a run
-   key with its top bit set, with the same rule and limits; fed stream
-   mode's words of the config-3 chunk as ``test_bits``, against
-   stream-mode B1 on that chunk (the same rule). Timed at config 3's
-   shape, stream and kernel-RNG mode in turns (stream, kernel, kernel,
-   stream); its own record in the kernels line.
+   (t0 = 500), and on the same ragged, non-finite and wide cases under a
+   run key with its top bit set, with the same rule, limits, plans and
+   routes; fed stream mode's words of the config-3 chunk as
+   ``test_bits``, against stream-mode B1 on that chunk (the same rule).
+   Timed at config 3's shape, stream and kernel-RNG mode in turns
+   (stream, kernel, kernel, stream), and at d = 240 and 300; its own
+   record in the kernels line.
 2g. B11 (``gather_rows``) against its plain version on the card, every
    case bit-equal (``torch.equal``): the fused chunk's [10, 256, 6]
    indices, drawn by B3 from the config-3 run's words after burn-in, into
@@ -561,27 +568,80 @@ KRNG_OPS_PER_LANE = 10 * 8 + 9 * 2 + 3 * 3 + 3 + 2 * 40
 
 def b1_work(x0, rows, scal, n_modes, kernel_rng=False):
     """Bytes B1 must move and the operations this run's moves take (a
-    mixture target). Each input the function needs is read once and
-    each output written once: a parallel move needs 2δ archive rows and,
-    in stream mode, its three [d] draws, a snooker move rows 0-2 and no
-    draw. Kernel-RNG mode reads no draws and makes every lane's three."""
+    mixture of ``n_modes`` modes; the correlated Gaussian where n_modes
+    is 0). Each input the function needs is read once and each output
+    written once: a parallel move needs 2δ archive rows and, in stream
+    mode, its three [d] draws, a snooker move rows 0-2 and no draw.
+    Kernel-RNG mode reads no draws and makes every lane's three."""
     G, n, k, d = rows.shape
     snk = scal[..., 3] > 0.5
     n_snk = int(snk.sum())
     par_rows = int((2 * scal[..., 0] * (~snk)).sum())
-    n_in = (x0.numel() + n + scal.numel() + n_modes * d + n_modes
+    n_const = n_modes * d + n_modes if n_modes else d * d + d
+    n_in = (x0.numel() + n + scal.numel() + n_const
             + (3 * n_snk + par_rows) * d)
     if not kernel_rng:
         n_in += 3 * (G * n - n_snk) * d
     n_bytes = 4 * (n_in + G * n * d + G * n) + G * n
     par_per_dim = int(((3 * scal[..., 0] + 10) * (~snk)).sum())
     # proposal pass 1: 7 a dim; pass 2: 6 (snooker) or 3·δ + 10
-    # (parallel); the target 3 a mode and dim; the accept ~10
+    # (parallel); the target 3 a mode and dim (the mixture) or 2 d² + 3 d
+    # (the Gaussian's quadratic form); the accept ~10
+    target = (3 * n_modes * d + 6 * n_modes if n_modes
+              else 2 * d * d + 3 * d)
     n_ops = (G * n * d * 7 + n_snk * d * 6 + par_per_dim * d
-             + G * n * (3 * n_modes * d + 6 * n_modes + 10))
+             + G * n * (target + 10))
     if kernel_rng:
         n_ops += G * n * d * KRNG_OPS_PER_LANE
     return n_bytes, n_ops
+
+
+def b1_shape(lp, G, n, d):
+    """``ops/fused_chunk.plan``'s target arguments of B1 on ``lp``: (n,
+    d, G, n_pairs, kind, n_modes)."""
+    form = lp.kernel_form
+    if form.name == "gaussian_mixture":
+        return n, d, G, 3, 1, form.arrays["means"].shape[0]
+    return n, d, G, 3, 0, 0
+
+
+def b1_hold_routes(call, out, shape, label):
+    """``call(route)`` on each route of B1 that takes ``shape``: every
+    launch's plan as ``ops/fused_chunk.plan`` gives it, and outputs equal
+    bit for bit to ``out``, those of the route B1 chose. Returns the
+    routes run."""
+    from bipymc_tpu_torch.ops import fused_chunk as b1
+
+    taken = []
+    for route in b1.ROUTES:
+        want = b1.plan(*shape, route=route)
+        if want is None:
+            continue
+        o = call(route)
+        torch.cuda.synchronize()
+        if b1.fused_chunk.last_plan != want:
+            raise AssertionError(f"B1's {route} route ({label}) launched "
+                                 f"{b1.fused_chunk.last_plan}, plan {want}")
+        if not all(bool(torch.equal(a, b)) for a, b in zip(o, out)):
+            raise AssertionError(f"B1's {route} route ({label}) differs "
+                                 "from the chosen route's outputs")
+        taken.append(route)
+    return taken
+
+
+def b1_check_plan(shape, label):
+    """The last launch of B1 took ``ops/fused_chunk.plan``'s launch."""
+    from bipymc_tpu_torch.ops import fused_chunk as b1
+
+    if b1.fused_chunk.last_plan != b1.plan(*shape):
+        raise AssertionError(f"B1 ({label}) launched "
+                             f"{b1.fused_chunk.last_plan}, plan "
+                             f"{b1.plan(*shape)}")
+    return b1.fused_chunk.last_plan
+
+
+# the correlated Gaussian past B1's shared route, at config 3's n and G
+B1_WIDE_D = (240, 300)
 
 
 def config3_burned_in(dev):
@@ -607,37 +667,76 @@ def check_b1(dev):
     ops = chunk_operands(st, s._words, BURNIN, s.cfg)
     if tuple(ops[0].shape) != (10, N_CHAINS, 6, D):
         raise AssertionError(f"config-3 rows {tuple(ops[0].shape)}")
+    shape = b1_shape(lp, 10, N_CHAINS, D)
     excused, ex, el, out = b1_compare(lp, st.x, ops, D, "config 3")
+    plan = b1_check_plan(shape, "config 3")
+    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
+    lp0 = lp(st.x)
+    routes = b1_hold_routes(
+        lambda r: fused_chunk(st.x, lp0, *ops, lp, route=r, **kw), out,
+        shape, "config 3")
     readings = {"config3": {"excused_bits": excused, "max_abs_dx": ex,
-                            "max_abs_dlogp": el,
+                            "max_abs_dlogp": el, "plan": plan,
+                            "routes_bit_equal": routes,
                             "acceptance": float(out[2].float().mean())}}
     cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
              (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
+    cases += [(10, N_CHAINS, d, "gaussian") for d in B1_WIDE_D]
+    wide = {}
     for i, (G, n, d, kind) in enumerate(cases):
+        label = f"G={G} n={n} d={d} {kind}"
         tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
         x0, *rest = b1_ragged_operands(G, n, d, seed=i, dev=dev)
         if kind == "nonfinite":
             rest[0][2, 3] = torch.inf
-        e_bits, e_x, e_l, o = b1_compare(tgt, x0, rest, d,
-                                         f"G={G} n={n} d={d} {kind}")
+        e_bits, e_x, e_l, o = b1_compare(tgt, x0, rest, d, label)
         if kind == "nonfinite" and bool(o[2][2, 3]):
             raise AssertionError("B1 accepted a non-finite proposal")
-        readings[f"G={G} n={n} d={d} {kind}"] = {
-            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l}
+        kw_d = dict(kw, d_true=d)
+        t_lp0 = tgt(x0)
+        readings[label] = {
+            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l,
+            "plan": b1_check_plan(b1_shape(tgt, G, n, d), label),
+            "routes_bit_equal": b1_hold_routes(
+                lambda r: fused_chunk(x0, t_lp0, *rest, tgt, route=r,
+                                      **kw_d), o, b1_shape(tgt, G, n, d),
+                label)}
+        if d in B1_WIDE_D:
+            n_bytes, n_ops = b1_work(x0, rest[0], rest[4], 0)
+            wide[f"d{d}"] = {
+                "ms": device_ms(lambda: fused_chunk(x0, t_lp0, *rest, tgt,
+                                                    **kw_d), reps=20,
+                                warmup=3),
+                "bound_ms": bound_ms(n_bytes, n_ops),
+                "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                             >= n_ops / FP32_OPS_PER_S else "operations"),
+                "route": readings[label]["plan"][0]}
     log("B1 fused_chunk: against the plain version, limits "
         f"{json.dumps(B1_TOL)}:", json.dumps(readings))
+    log("B1 fused_chunk, the Gaussian past the shared route (n = 256, "
+        "G = 10), device ms and bound:", json.dumps(wide))
 
-    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
-    lp0 = lp(st.x)
     kernel = lambda: fused_chunk(st.x, lp0, *ops, lp, **kw)
     plain = lambda: fused_chunk_plain(st.x, lp0, *ops, lp, **kw)
+    forced = lambda r: (lambda: fused_chunk(st.x, lp0, *ops, lp, route=r,
+                                            **kw))
+    # the two routes in turns at config 3: shared, global, global, shared
+    turns = [device_ms(forced(r)) for r in ("shared", "global", "global",
+                                            "shared")]
+    log("B1 device ms at config 3 in turns (shared, global, global, "
+        "shared):", json.dumps(turns))
     times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
              call_ms(kernel), call_ms(plain, reps=30, warmup=3))
     n_bytes, n_ops = b1_work(st.x, ops[0], ops[4], len(means))
-    return kernel_record(
+    rec = kernel_record(
         "fused_chunk", "bipymc_tpu_torch/csrc/fused_chunk.cu",
         "bipymc_tpu/ops/fused_chunk.py:242", max(ex, el), times, n_bytes,
         n_ops)
+    rec["plan"] = plan
+    rec["routes_turns_ms"] = {"shared": [turns[0], turns[3]],
+                              "global": [turns[1], turns[2]]}
+    rec["gaussian_wide"] = wide
+    return rec
 
 
 # ------------------------------------------------ phase 2e, kernel-RNG mode
@@ -697,26 +796,56 @@ def check_b1_kernel_rng(dev):
     rows, scal, _ = chunk_operands_kernel_rng(st, s._words, BURNIN, s.cfg)
     if tuple(rows.shape) != (10, N_CHAINS, 6, D):
         raise AssertionError(f"config-3 rows {tuple(rows.shape)}")
+    shape = b1_shape(lp, 10, N_CHAINS, D)
     excused, ex, el, out, _ = b1_kernel_rng_compare(lp, st.x, rows, scal, D,
                                                     "config 3", key, BURNIN)
+    plan = b1_check_plan(shape, "config 3, kernel RNG")
+    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
+    lp0 = lp(st.x)
+    routes = b1_hold_routes(
+        lambda rt: fused_chunk(st.x, lp0, rows, None, None, None, scal, lp,
+                               rng="kernel", run_key=key, t0=BURNIN,
+                               route=rt, **kw), out, shape,
+        "config 3, kernel RNG")
     readings = {"config3": {"excused_bits": excused, "max_abs_dx": ex,
-                            "max_abs_dlogp": el,
+                            "max_abs_dlogp": el, "plan": plan,
+                            "routes_bit_equal": routes,
                             "acceptance": float(out[2].float().mean())}}
     cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
              (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
+    cases += [(10, N_CHAINS, d, "gaussian") for d in B1_WIDE_D]
+    wide = {}
     for i, (G, n, d, kind) in enumerate(cases):
+        label = f"G={G} n={n} d={d} {kind}"
         tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
         x0, r, _, _, _, sc = b1_ragged_operands(G, n, d, seed=i, dev=dev)
         if kind == "nonfinite":
             r[2, 3] = torch.inf
         e_bits, e_x, e_l, o, _ = b1_kernel_rng_compare(
-            tgt, x0, r, sc, d, f"G={G} n={n} d={d} {kind}", RUN_KEY_HI,
-            10 * i)
+            tgt, x0, r, sc, d, label, RUN_KEY_HI, 10 * i)
         if kind == "nonfinite" and bool(o[2][2, 3]):
             raise AssertionError("kernel-RNG B1 accepted a non-finite "
                                  "proposal")
-        readings[f"G={G} n={n} d={d} {kind}"] = {
-            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l}
+        kw_d = dict(kw, d_true=d, rng="kernel", run_key=RUN_KEY_HI,
+                    t0=10 * i)
+        t_lp0 = tgt(x0)
+        readings[label] = {
+            "excused_bits": e_bits, "max_abs_dx": e_x, "max_abs_dlogp": e_l,
+            "plan": b1_check_plan(b1_shape(tgt, G, n, d), label),
+            "routes_bit_equal": b1_hold_routes(
+                lambda rt: fused_chunk(x0, t_lp0, r, None, None, None, sc,
+                                       tgt, route=rt, **kw_d), o,
+                b1_shape(tgt, G, n, d), label)}
+        if d in B1_WIDE_D:
+            n_bytes, n_ops = b1_work(x0, r, sc, 0, kernel_rng=True)
+            wide[f"d{d}"] = {
+                "ms": device_ms(lambda: fused_chunk(x0, t_lp0, r, None, None,
+                                                    None, sc, tgt, **kw_d),
+                                reps=20, warmup=3),
+                "bound_ms": bound_ms(n_bytes, n_ops),
+                "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                             >= n_ops / FP32_OPS_PER_S else "operations"),
+                "route": readings[label]["plan"][0]}
 
     # stream mode's own words as test_bits: the decisions of stream-mode
     # B1 on the same chunk (a bit excused only at a plain near tie)
@@ -726,8 +855,6 @@ def check_b1_kernel_rng(dev):
     e_bits, e_x, e_l, t_out, t_la = b1_kernel_rng_compare(
         lp, st.x, t_rows, t_scal, D, "config 3, stream words", key, BURNIN,
         test_bits=tb)
-    kw = dict(n_pairs=3, d_true=D, b=1e-4, b_star=1e-6)
-    lp0 = lp(st.x)
     stream = fused_chunk(st.x, lp0, *s_ops, lp, **kw)
     kept, vs_stream = match_decisions(t_out[2], stream[2],
                                       (t_scal[..., 5] - t_la).abs())
@@ -742,6 +869,8 @@ def check_b1_kernel_rng(dev):
                                                         stream[2]))}
     log("B1 fused_chunk, kernel RNG: against the plain version, limits "
         f"{json.dumps(B1_TOL)}:", json.dumps(readings))
+    log("B1 fused_chunk, kernel RNG, the Gaussian past the shared route "
+        "(n = 256, G = 10), device ms and bound:", json.dumps(wide))
 
     kw_k = dict(kw, rng="kernel", run_key=key, t0=BURNIN)
     kernel = lambda: fused_chunk(st.x, lp0, rows, None, None, None, scal,
@@ -764,6 +893,8 @@ def check_b1_kernel_rng(dev):
     rec["rng"] = "kernel (_draw_kernel_randomness :73)"
     rec["turns_ms"] = {"stream": [turns[0], turns[3]],
                        "kernel_rng": [turns[1], turns[2]]}
+    rec["plan"] = plan
+    rec["gaussian_wide"] = wide
     return rec
 
 

@@ -15,10 +15,10 @@ logp within rtol 1e-5 / atol 1e-6 (the kernel sums over d in another
 order), on the route it chooses and on every route forced that takes the
 shape, the launch's plan equal to ``ops/fused_rw_chunk.plan``'s and the
 routes' outputs equal bit for bit where two run; on the card
-``DreamZs(fused=True)`` and ``EnsembleSampler(fused=True)`` refuse at
-construction a 240-d Gaussian that B1 and B9 cannot hold, and
-``Dram(fused=True)`` runs it through B4's global route. B5 is held within
-atol 1e-3 of its plain version (tests/
+``EnsembleSampler(fused=True)`` refuses at construction a 240-d Gaussian
+that B9 cannot hold, and ``DreamZs(fused=True)`` (both modes) and
+``Dram(fused=True)`` run it, through B1's and B4's global routes. B5 is
+held within atol 1e-3 of its plain version (tests/
 test_gp.py's bound for the reference's kernel), B6 within L atol
 5e-6·max|L| and z atol 1e-5·max|z| (tests/test_pallas_bchol.py's), with
 NaN in the same matrices and L bit-equal between its two entry points.
@@ -31,8 +31,11 @@ except a bit the plain version puts within 1e-4 of its threshold, with x
 within rtol 1e-5 / atol 1e-5 and logp within rtol 1e-5 / atol 1e-4 (B2's
 tolerances: |logp| reaches ~200 at d = 100), in kernel-RNG mode too,
 against its plain version on the same Philox words and, fed stream
-words as ``test_bits``, against stream mode. B7 is held within
-5e-6·max|L| of its plain version on SPD
+words as ``test_bits``, against stream mode; on the route it chooses
+and on each route forced that takes the shape (the Gaussian at d = 240
+and 300 on the global route), the launch's plan equal to
+``ops/fused_chunk.plan``'s and the routes' outputs equal bit for bit. B7
+is held within 5e-6·max|L| of its plain version on SPD
 matrices (B6's bound), B8 within 1e-5·max|x| (two float32 substitutions
 summing in other orders); their gradients, and B5's and B6's, within
 1e-4 of the plain routes' (relative to the largest entry), autograd of
@@ -72,6 +75,7 @@ from bipymc_tpu_torch.core.rng import bits_to_uniform, uniform_to_normal
 from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk, fused_chunk_plain,
                                               kernel_rng_draws)
 from bipymc_tpu_torch.ops import _build
+from bipymc_tpu_torch.ops import fused_chunk as b1
 from bipymc_tpu_torch.ops import fused_rw_chunk as b4
 from bipymc_tpu_torch.ops.fused_rw_chunk import (fused_rw_chunk,
                                                  fused_rw_chunk_plain)
@@ -348,18 +352,28 @@ def test_b4_plan_matches_the_launch(cuda):
 
 @pytest.mark.cuda
 def test_fused_samplers_refuse_what_b1_and_b9_cannot_hold(cuda):
-    """On the card, ``DreamZs(fused=True)`` and
-    ``EnsembleSampler(fused=True)`` refuse at construction a 240-d
-    Gaussian that B1 and B9 cannot hold in shared memory; ``Dram(fused=
-    True)`` takes it (B4's global route), and the fused engine runs."""
+    """On the card, ``EnsembleSampler(fused=True)`` refuses at
+    construction a 240-d Gaussian that B9 cannot hold in shared memory;
+    ``DreamZs(fused=True)`` takes it in both modes (B1's global route:
+    one launch a fused chunk, finite chains) and so does ``Dram(fused=
+    True)`` (B4's global route)."""
     d = 240
     lp = _b4_target("gaussian", d)
-    for rng in ("stream", "kernel"):
-        with pytest.raises(ValueError, match="up to d=23"):
-            bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng,
-                       device=cuda)
     with pytest.raises(ValueError, match="up to d=236"):
         bt.EnsembleSampler(lp, n_chains=32, fused=True, device=cuda)
+    x0 = np.random.default_rng(0).standard_normal((32, d))
+    for rng in ("stream", "kernel"):
+        s = bt.DreamZs(lp, n_chains=32, seed=0, burnin_gens=20,
+                       archive_capacity=1024, fused=True, fused_rng=rng,
+                       device=cuda)
+        before = (fused_chunk.launches, fused_chunk.kernel_rng_launches)
+        s.run_mcmc(40, x0)
+        assert fused_chunk.launches - before[0] == 2
+        assert fused_chunk.kernel_rng_launches - before[1] == (
+            2 if rng == "kernel" else 0)
+        assert fused_chunk.last_plan[0] == "global"
+        h = s._history
+        assert np.all(np.isfinite(h["x"])) and 0 < h["accepted"].mean() < 1
     s = bt.Dram(lp, seed=0, n_chains=2, fused=True, t0=20,
                 adapt_interval=10, device=cuda)
     before = fused_rw_chunk.launches
@@ -450,14 +464,16 @@ def _b1_target(kind, d):
     return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
 
 
-def _b1_operands(G, n, d, seed, device):
+def _b1_operands(G, n, d, seed, device, pad=4):
     """x0, rows, u_mask, u_e, eps, scal as the fused runner builds them;
-    u_mask and u_e are slices of a wider uniform block (row stride 2d+4),
-    as the runner passes them."""
+    u_mask and u_e are slices of a wider uniform block (row stride
+    2d + pad, u_mask at pad), as the runner passes them (its own block,
+    ``samplers/dream_fused.chunk_operands``, has them at 11, stride
+    3d + 11)."""
     rng = np.random.default_rng(seed)
     x0 = 2.0 * rng.standard_normal((n, d))
     rows = x0[None, :, None, :] + 2.0 * rng.standard_normal((G, n, 6, d))
-    block = rng.random((G, n, 2 * d + 4))
+    block = rng.random((G, n, 2 * d + pad))
     eps = rng.standard_normal((G, n, d))
     jump = np.zeros((G, n))
     jump[G // 2] = 1.0
@@ -468,33 +484,56 @@ def _b1_operands(G, n, d, seed, device):
         np.log(rng.uniform(1e-7, 1.0, (G, n)))], -1)
     t = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
         device) for a in (x0, rows, block, eps, scal)]
-    return t[0], t[1], t[2][..., 4:4 + d], t[2][..., 4 + d:], t[3], t[4]
+    return (t[0], t[1], t[2][..., pad:pad + d], t[2][..., pad + d:], t[3],
+            t[4])
 
 
-def _b1_both(lp, ops, d):
+def _b1_kind(lp):
+    mixture = lp.kernel_form.name == "gaussian_mixture"
+    return (1, lp.kernel_form.arrays["means"].shape[0]) if mixture else (0,
+                                                                         0)
+
+
+def _b1_both(lp, ops, d, route=None):
     x0, rows, u_mask, u_e, eps, scal = ops
     lp0 = lp(x0)
     before = fused_chunk.launches
     out = fused_chunk(x0, lp0, rows, u_mask, u_e, eps, scal, lp, d_true=d,
-                      **KW)
+                      route=route, **KW)
     torch.cuda.synchronize()
     assert fused_chunk.launches == before + 1
+    assert fused_chunk.last_plan == b1.plan(x0.shape[0], d, scal.shape[0],
+                                            3, *_b1_kind(lp), route)
     args = (x0, lp0, rows, u_mask, u_e, eps, scal, lp)
     ref = fused_chunk_plain(*args, d_true=d, **KW)
     return out, ref + (plain_log_alpha(*args, d_true=d, **KW),)
 
 
+B1_SHAPES = [(10, 256, 100, "mixture", 4), (10, 256, 100, "mixture", 11),
+             (1, 7, 3, "mixture", 4), (1, 7, 3, "gaussian", 5),
+             (10, 37, 129, "gaussian", 4), (5, 32, 8, "mixture", 7),
+             (10, 64, 240, "gaussian", 4), (4, 256, 300, "gaussian", 11)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,n,d,kind", [
-    (10, 256, 100, "mixture"), (1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
-    (10, 37, 129, "gaussian"), (5, 32, 8, "mixture")])
-def test_b1_kernel_matches_plain(cuda, G, n, d, kind):
-    """Config 3's shape [10, 256, 6, 100] and ragged ones: the same
-    accept bits, except where the plain version's |log u − log α| < 1e-4
-    (that chain then left out), x and logp within B2's tolerances."""
+@pytest.mark.parametrize("route", [None, "shared", "global"])
+@pytest.mark.parametrize("G,n,d,kind,pad", B1_SHAPES)
+def test_b1_kernel_matches_plain(cuda, G, n, d, kind, pad, route):
+    """Config 3's shape [10, 256, 6, 100] (the draw rows at the offsets
+    and strides of this file's operands and of the runner's), ragged ones
+    and the Gaussian past the shared route, on the route B1 chooses and
+    on each route forced: the same accept bits, except where the plain
+    version's |log u − log α| < 1e-4 (that chain then left out), x and
+    logp within B2's tolerances; the launch's plan is ``plan``'s, and a
+    forced route that does not take the shape is refused."""
     lp = _b1_target(kind, d)
-    ops = _b1_operands(G, n, d, seed=G + n + d, device=cuda)
-    out, ref = _b1_both(lp, ops, d)
+    ops = _b1_operands(G, n, d, seed=G + n + d, device=cuda, pad=pad)
+    if b1.plan(n, d, G, 3, *_b1_kind(lp), route) is None:
+        with pytest.raises(ValueError, match="does not take"):
+            fused_chunk(ops[0], lp(ops[0]), *ops[1:], lp, d_true=d,
+                        route=route, **KW)
+        return
+    out, ref = _b1_both(lp, ops, d, route)
     kept, _ = match_decisions(out[2], ref[2],
                               (ops[5][..., 5] - ref[3]).abs())
     assert bool(kept[0].all())
@@ -581,7 +620,7 @@ KEY_HI = 0xF123456789ABCDEF      # top bit set: a key ≥ 2⁶³ through uint64
 
 
 def _b1_kernel_rng_both(lp, x0, rows, scal, d, t0=500, test_bits=None,
-                        key=KEY):
+                        key=KEY, route=None):
     """Kernel-RNG B1 and its plain version (the same words) on one
     operand set: (kernel outputs, plain outputs, plain log α)."""
     G, n = scal.shape[:2]
@@ -589,10 +628,12 @@ def _b1_kernel_rng_both(lp, x0, rows, scal, d, t0=500, test_bits=None,
     before = (fused_chunk.launches, fused_chunk.kernel_rng_launches)
     out = fused_chunk(x0, lp0, rows, None, None, None, scal, lp, d_true=d,
                       rng="kernel", run_key=key, t0=t0, test_bits=test_bits,
-                      **KW)
+                      route=route, **KW)
     torch.cuda.synchronize()
     assert (fused_chunk.launches, fused_chunk.kernel_rng_launches) == (
         before[0] + 1, before[1] + 1)
+    assert fused_chunk.last_plan == b1.plan(n, d, G, 3, *_b1_kind(lp),
+                                            route)
     draws = kernel_rng_draws(key, t0, G, n, d, x0.device, test_bits)
     args = (x0, lp0, rows, *draws, scal, lp)
     return (out, fused_chunk_plain(*args, d_true=d, **KW),
@@ -609,18 +650,25 @@ def _b1_hold(out, ref, ref_la, scal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "shared", "global"])
 @pytest.mark.parametrize("G,n,d,kind,key", [
     (10, 256, 100, "mixture", KEY), (10, 256, 100, "mixture", KEY_HI),
     (1, 7, 3, "mixture", KEY_HI), (1, 7, 3, "gaussian", KEY_HI),
-    (10, 37, 129, "gaussian", KEY_HI)])
-def test_b1_kernel_rng_matches_plain(cuda, G, n, d, kind, key):
-    """Kernel-RNG B1 at config 3's shape and the ragged ones of phase 2e
-    against its plain version on the same Philox words (B1's
-    tolerances), under run keys below and above 2⁶³."""
+    (10, 37, 129, "gaussian", KEY_HI), (10, 64, 240, "gaussian", KEY),
+    (4, 256, 300, "gaussian", KEY_HI)])
+def test_b1_kernel_rng_matches_plain(cuda, G, n, d, kind, key, route):
+    """Kernel-RNG B1 at config 3's shape, the ragged ones of phase 2e and
+    the Gaussian past the shared route, on the route it chooses and on
+    each route forced that takes the shape, against its plain version on
+    the same Philox words (B1's tolerances), under run keys below and
+    above 2⁶³."""
     lp = _b1_target(kind, d)
     x0, rows, _, _, _, scal = _b1_operands(G, n, d, seed=G + n + d,
                                            device=cuda)
-    out, ref, ref_la = _b1_kernel_rng_both(lp, x0, rows, scal, d, key=key)
+    if b1.plan(n, d, G, 3, *_b1_kind(lp), route) is None:
+        return                     # refused: test_b1_kernel_matches_plain
+    out, ref, ref_la = _b1_kernel_rng_both(lp, x0, rows, scal, d, key=key,
+                                           route=route)
     _b1_hold(out, ref, ref_la, scal)
     assert 0 < int(out[2].sum()) < out[2].numel() or G == 1
 
@@ -659,6 +707,60 @@ def test_b1_kernel_rng_rejects_a_nonfinite_proposal(cuda):
     out, ref, _ = _b1_kernel_rng_both(lp, x0, rows, scal, 4)
     assert torch.equal(out[2], ref[2]) and not bool(out[2][2, 3])
     assert bool(torch.all(torch.isfinite(out[0])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["stream", "kernel"])
+@pytest.mark.parametrize("G,n,d,kind,pad", [
+    s for s in B1_SHAPES if s[2] < 230] + [(3, 9, 100, "nonfinite", 11)])
+def test_b1_routes_agree_bit_for_bit(cuda, G, n, d, kind, pad, rng):
+    """Both routes run one per-generation code: where both take a shape
+    their outputs are equal bit for bit, in both modes, a non-finite
+    proposal rejected on each."""
+    lp = _b1_target("gaussian" if kind == "gaussian" else "mixture", d)
+    x0, rows, um, ue, ep, scal = _b1_operands(G, n, d, seed=3 * d + G,
+                                              device=cuda, pad=pad)
+    if kind == "nonfinite":
+        rows[1, 4] = torch.inf
+    kw = dict(d_true=d, **KW)
+    draws = (um, ue, ep)
+    if rng == "kernel":
+        kw.update(rng="kernel", run_key=KEY_HI, t0=40)
+        draws = (None, None, None)
+    outs = []
+    for route in b1.ROUTES:
+        outs.append(fused_chunk(x0, lp(x0), rows, *draws, scal, lp,
+                                route=route, **kw))
+        assert fused_chunk.last_plan[0] == route
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    if kind == "nonfinite":
+        assert not bool(outs[0][2][1, 4])
+    assert bool(torch.all(torch.isfinite(outs[0][0])))
+
+
+@pytest.mark.cuda
+def test_b1_plan_matches_the_launch(cuda):
+    """``plan`` mirrors ``csrc/fused_chunk.cu``'s plan (the entry point
+    the wrapper asks before each launch) over a grid of shapes."""
+    import ctypes
+    fn = _build.library("fused_chunk_plan")
+    for n in (1, 7, 37, 256, 1024, 4096):
+        for d in (1, 3, 100, 129, 230, 238, 240, 300, 1000, 4096):
+            for G in (1, 10, 64):
+                for kind, n_modes in ((0, 0), (1, 4), (1, 16), (1, 17)):
+                    for route in (None, *b1.ROUTES):
+                        out = (ctypes.c_int * 7)()
+                        err = fn(n, d, G, 3, kind, n_modes,
+                                 -1 if route is None else
+                                 b1.ROUTES.index(route),
+                                 ctypes.addressof(out))
+                        want = b1.plan(n, d, G, 3, kind, n_modes, route)
+                        got = None if err else (b1.ROUTES[out[0]],
+                                                *out[1:4],
+                                                b1.STAGING[out[4]], out[5])
+                        assert got == want, (n, d, G, kind, n_modes, route)
 
 
 @pytest.mark.cuda

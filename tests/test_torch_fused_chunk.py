@@ -10,9 +10,19 @@ must be identical. Positions and logp are held within rtol 1e-5 /
 atol 1e-5: the packages sum over d and over the modes in different
 orders, the snooker log Jacobian (|log_jac| reaches ~10 at d = 8) carries
 that rounding into log α, and a chain's x carries it over the G
-generations. On the CPU the dispatcher takes the plain version; the
-kernel's wrapper raises for what it does not take.
+generations. The Gaussian at d = 240 lies past what the kernel's shared
+route holds; its global route computes the reference's function there
+too. On the CPU the dispatcher takes the plain version; the kernel's
+wrapper raises for what it does not take.
+
+The kernel's launch plan, ``csrc/fused_chunk_plan.cuh::chunk_plan``,
+built with the host's C++ compiler, must agree with its mirror
+``ops/fused_chunk.plan`` on every shape and forced route asked.
 """
+
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +33,7 @@ from bipymc_tpu.models import targets as jtargets
 from bipymc_tpu.ops.fused_chunk import (block_logp_from_scalar,
                                         fused_chunk_pallas)
 from bipymc_tpu_torch.models import targets
+from bipymc_tpu_torch.ops import fused_chunk as b1
 from bipymc_tpu_torch.ops.fused_chunk import (fused_chunk,
                                               fused_chunk_plain,
                                               run_fused_chunk)
@@ -32,6 +43,7 @@ torch.set_num_threads(2)
 
 KW = dict(n_pairs=3, b=1e-4, b_star=1e-6)
 RTOL = ATOL = 1e-5
+CSRC = Path(b1.__file__).resolve().parents[1] / "csrc"
 
 
 def _targets(kind, d):
@@ -85,7 +97,7 @@ def _both(kind, G, n, d, seed, **op_kw):
 @pytest.mark.parametrize("kind,G,n,d,seed", [
     ("mixture", 10, 16, 8, 0), ("mixture", 10, 16, 8, 1),
     ("gaussian", 10, 16, 8, 2), ("mixture", 1, 7, 3, 3),
-    ("gaussian", 4, 9, 129, 4)])
+    ("gaussian", 4, 9, 129, 4), ("gaussian", 2, 3, 240, 11)])
 def test_plain_matches_pallas_interpret(kind, G, n, d, seed):
     (jx, jl, ja), (x, l, acc), scal = _both(kind, G, n, d, seed)
     assert x.shape == (G, n, d) and acc.dtype == np.bool_
@@ -174,6 +186,8 @@ def test_wrapper_raises_for_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="u_e"):
         run_fused_chunk(x0, lp0, rows, u_mask, u_e[:2], eps, scal, lp,
                         d_true=d, **KW)
+    with pytest.raises(ValueError, match="route='l2'"):
+        fused_chunk(*args, lp, d_true=d, route="l2", **KW)
 
 
 def test_match_decisions_excuses_only_near_ties():
@@ -193,3 +207,98 @@ def test_match_decisions_excuses_only_near_ties():
     margin[1, 1] = 1e-3
     with pytest.raises(AssertionError, match="generation 1, chain 1"):
         match_decisions(acc, ref, margin)
+
+
+def _c_plans(queries, tmp_path):
+    """``csrc/fused_chunk_plan.cuh::chunk_plan`` built with the host's C++
+    compiler, run on each (n, d, G, n_pairs, kind, n_modes, force) at the
+    H100's shared memory: its plan as ``plan`` writes it, or None."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the C plan with")
+    src = tmp_path / "plan.cpp"
+    src.write_text(
+        '#include <cstdio>\n#include "fused_chunk_plan.cuh"\n'
+        "int main() {\n  int q[8];\n"
+        '  while (std::scanf("%d %d %d %d %d %d %d %d", q, q + 1, q + 2,'
+        " q + 3, q + 4, q + 5, q + 6, q + 7) == 8) {\n"
+        "    b1plan::Plan p;\n"
+        "    if (!b1plan::chunk_plan(q[0], q[1], q[2], q[3], q[4], q[5],"
+        " q[6], q[7], &p))\n"
+        '      std::puts("None");\n'
+        "    else\n"
+        '      std::printf("%d %d %d %zu %d %d\\n", p.route, p.cpb,'
+        " p.threads, p.smem, p.stage, p.gens);\n  }\n}\n")
+    exe = tmp_path / "plan"
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{CSRC}", str(src), "-o",
+                    str(exe)], check=True, capture_output=True, timeout=120)
+    text = "".join(f"{n} {d} {G} {p} {kind} {m} {f} {b1.MAX_SHARED_BYTES}\n"
+                   for n, d, G, p, kind, m, f in queries)
+    out = subprocess.run([str(exe)], input=text, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    plans = []
+    for line in out.splitlines():
+        if line == "None":
+            plans.append(None)
+            continue
+        route, cpb, threads, smem, stage, gens = map(int, line.split())
+        plans.append((b1.ROUTES[route], cpb, threads, smem,
+                      b1.STAGING[stage], gens))
+    return plans
+
+
+# the shapes the card checks run (config 3; phase 2e's ragged ones; the
+# Gaussian about the end of the shared route; the 16-mode mixture wide)
+NAMED = [(256, 100, 10, 3, 1, 4), (7, 3, 1, 3, 1, 4), (7, 3, 1, 3, 0, 0),
+         (37, 129, 10, 3, 0, 0), (8, 4, 5, 3, 1, 4)] + [
+    (n, d, 10, 3, 0, 0) for n in (2, 256) for d in (238, 239, 240, 300,
+                                                    1000)] + [
+    (256, 4096, 10, 3, 1, 16), (3, 240, 2, 3, 0, 0)]
+
+
+def test_plan_matches_the_c_plan(tmp_path):
+    """``plan`` mirrors the C plan the launch makes, on the named shapes
+    and over a grid of shapes, pairs, targets and forced routes."""
+    grid = [(n, d, G, p, kind, m)
+            for n in (1, 7, 37, 128, 256, 1000, 1024, 4096)
+            for d in (1, 3, 4, 100, 129, 230, 238, 240, 300, 1000, 4096)
+            for G in (1, 10, 64)
+            for p in (1, 3)
+            for kind, m in ((0, 0), (1, 4), (1, 16), (1, 17))]
+    queries = [(*q, f) for q in NAMED + grid for f in (-1, 0, 1)]
+    want = [b1.plan(n, d, G, p, kind, m, None if f < 0 else b1.ROUTES[f])
+            for n, d, G, p, kind, m, f in queries]
+    assert _c_plans(queries, tmp_path) == want
+    assert sum(p is None for p in want) > 0
+    assert {p[4] for p in want if p} == set(b1.STAGING)
+
+
+@pytest.mark.parametrize("n,d,G,kind,modes,route,cpb,staging", [
+    (256, 100, 10, 1, 4, "shared", 2, "whole"),     # config 3
+    (7, 3, 1, 1, 4, "shared", 1, "whole"),
+    (7, 3, 1, 0, 0, "shared", 1, "whole"),
+    (37, 129, 10, 0, 0, "shared", 1, "whole"),
+    (256, 230, 10, 0, 0, "shared", 1, "batch"),
+    (256, 238, 10, 0, 0, "global", 2, "none"),
+    (256, 239, 10, 0, 0, "global", 2, "none"),
+    (256, 240, 10, 0, 0, "global", 2, "none"),
+    (256, 300, 10, 0, 0, "global", 2, "none"),
+    (256, 1000, 10, 0, 0, "global", 2, "none"),
+    (256, 4096, 10, 1, 16, "global", 2, "none"),
+    (1024, 100, 10, 1, 4, "shared", 5, "whole"),
+])
+def test_plan_routes(n, d, G, kind, modes, route, cpb, staging):
+    """The route each shape takes, its chains a block and its staging:
+    config 3 in 128 blocks with all ten generations staged; every target
+    the plain version takes has a route (the global one past the shared
+    memory); the shared route forced where it does not fit is refused,
+    the global route forced takes every shape."""
+    p = b1.plan(n, d, G, 3, kind, modes)
+    assert (p[0], p[1], p[4]) == (route, cpb, staging)
+    assert p[2] % 32 == 0 and p[3] <= b1.MAX_SHARED_BYTES
+    if (n, d) == (256, 100):
+        assert -(-n // p[1]) == 128
+    assert (b1.plan(n, d, G, 3, kind, modes, "shared") is None) == (
+        route == "global")
+    assert b1.plan(n, d, G, 3, kind, modes, "global")[0] == "global"
+    assert b1.plan(n, d, G, 3, 1, 17) is None

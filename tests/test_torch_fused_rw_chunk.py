@@ -257,28 +257,22 @@ def _b1_meta(G, n, d, rng):
 
 @pytest.mark.parametrize("rng,limit", [("stream", 238), ("kernel", 237)])
 def test_b1_limit_is_the_wrappers_check(rng, limit):
-    """B1's limit for the correlated Gaussian, which
-    ``DreamZs(fused=True)`` checks at construction on a CUDA device, is
-    the wrapper's own: at d − 1 the wrapper goes on to its device check,
-    at d it refuses with the same message."""
+    """B1 held the correlated Gaussian's constants in shared memory and so
+    refused it past d = ``limit`` (238 in stream mode, 237 in kernel-RNG
+    mode), in its wrapper and in ``DreamZs(fused=True)`` on a CUDA device.
+    Its global route now takes it at every d: the plan finds a launch
+    there and the wrapper goes on to its device check rather than
+    refusing."""
     kw = dict(n_pairs=3, b=1e-4, b_star=1e-6, rng=rng)
     if rng == "kernel":
         kw.update(run_key=1, t0=0)
-    for d, fits in ((limit, True), (limit + 1, False)):
+    for d in (limit, limit + 1, 240, 300, 1000):
         lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
+        route = "shared" if d <= 230 else "global"
+        assert fused_chunk.plan(3, d, 2, 3, 0)[0] == route
         ops = _b1_meta(2, 3, d, rng)
-        if fits:
-            fused_chunk.check_target_fits(0, d, 0, rng)
-            with pytest.raises(ValueError, match="no kernel for device"):
-                fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
-        else:
-            with pytest.raises(ValueError, match=f"up to d={limit}") as e:
-                fused_chunk.check_target_fits(0, d, 0, rng)
-            with pytest.raises(ValueError) as w:
-                fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
-            assert str(w.value) == str(e.value)
-            assert f"{fused_chunk.shared_bytes(0, d, 0, rng)} bytes" in str(
-                e.value)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
 
 
 @pytest.mark.parametrize("n,limit", [(32, 236), (256, 236), (512, 231),
@@ -295,18 +289,17 @@ def test_b9_limit_is_the_plans(n, limit):
 
 
 def test_fused_samplers_refuse_at_construction_for_cuda():
-    """On a CUDA device, ``DreamZs(fused=True)`` and
-    ``EnsembleSampler(fused=True)`` refuse a 240-d Gaussian as they are
-    built (nothing touches the card); on the CPU the plain versions take
-    it, and ``Dram(fused=True)``, whose B4 takes any d, is built on
-    either."""
+    """On a CUDA device, ``EnsembleSampler(fused=True)`` refuses a 240-d
+    Gaussian as it is built (nothing touches the card), as B9's plan
+    finds no route; ``DreamZs(fused=True)``, whose B1 takes any d, and
+    ``Dram(fused=True)``, whose B4 does, are built on either device in
+    both of DreamZs's modes, and the CPU takes every one."""
     d = 240
     lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
     for rng in ("stream", "kernel"):
-        with pytest.raises(ValueError, match="kernel B1"):
+        for device in ("cuda", "cpu"):
             bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng,
-                       device="cuda")
-        bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng, device="cpu")
+                       device=device)
     with pytest.raises(ValueError, match="kernel B9"):
         bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cuda")
     bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cpu")

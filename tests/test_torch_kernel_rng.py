@@ -243,9 +243,10 @@ def _both(kind, G, n, d, seed, nonfinite=False, **op_kw):
     ("mixture", 10, 16, 8, 0, {}), ("mixture", 10, 16, 8, 1, {}),
     ("gaussian", 10, 16, 8, 2, {}), ("mixture", 1, 7, 3, 3, {}),
     ("gaussian", 4, 9, 129, 4, {}),
-    ("mixture", 6, 12, 8, 5, {"jump_gen": 2, "p_snooker": 1.0})],
+    ("mixture", 6, 12, 8, 5, {"jump_gen": 2, "p_snooker": 1.0}),
+    ("gaussian", 2, 3, 240, 11, {})],
     ids=["mixture-a", "mixture-b", "gaussian", "ragged", "wide",
-         "all-snooker"])
+         "all-snooker", "d240"])
 def test_plain_matches_pallas_interpret_kernel_rng(kind, G, n, d, seed,
                                                    op_kw):
     (jx, jl, ja), (x, l, acc), scal = _both(kind, G, n, d, seed, **op_kw)
