@@ -32,13 +32,14 @@
 // (kernel-RNG mode: ~26k, the Philox words and their float64 conversions
 // on top) and ~1.6k cycles a generation (the y loop, the butterfly of
 // the modes' sums, logsumexp with its four divisions, the accept and the
-// history row). The Gaussian past the shared memory (d = 240, 300) is
-// bound by its d^2 operations a chain and generation.
+// history row). The Gaussian on the global route (d = 240, 300) takes
+// ~1,100 cycles for each 8-row tile of the inverse a chain's warp
+// streams through its ring, 69-88 x the bound of its d^2 operations.
 //
 // The design. The work that does not depend on the chain's position is
 // done before the generations, and a generation is only what must follow
 // the last decision. Each (chain, generation)'s inputs are copied into
-// shared memory by cp.async, every copy of the batch at once, the
+// shared memory by cp.async, every copy of the G generations at once, the
 // block's threads stepping through them with no division a step: the
 // archive rows 16 bytes a copy where d and their address allow it; each
 // stream-mode draw row by the aligned 16-byte windows of device memory
@@ -69,11 +70,11 @@
 //   or the Gaussian's inverse and mean) read into shared memory once a
 //   block and shared by its n / 128 chains (1 to 8; 2 at n = 256: 128
 //   blocks of 256 threads); each chain's x and proposal y in shared
-//   memory; all G generations' inputs staged at the start where they fit
-//   (config 3: 84,864 bytes a block), else in batches of generations with
-//   a block barrier between batches.
-// - Global route (any d: the Gaussian past the shared memory's ~230, the
-//   mixture where its means do not fit, and any shape forced): the
+//   memory; all G generations' inputs staged at the start (config 3:
+//   84,864 bytes a block). It takes a shape where the constants, one
+//   chain's vectors and its G slots fit the shared memory.
+// - Global route (any d: the Gaussian past d = 192 at G = 10, the mixture
+//   where its means and slots do not fit, and any shape forced): the
 //   constants read from device memory, the Gaussian's inverse through a
 //   per-warp ring of kTiles tiles of kTJ rows x 128 columns filled by
 //   cp.async (each lane copies the quads it reads, so it waits for its
@@ -94,10 +95,10 @@
 // depend on the launch's shape.
 //
 // On the H100 (chip_smoke.py phase 2e; PERF.md's kernel table): config 3
-// takes ~0.018 ms a launch in stream mode and ~0.021 ms in kernel-RNG
+// takes ~0.019 ms a launch in stream mode and ~0.023 ms in kernel-RNG
 // mode (the kernel before these routes: ~0.045 and ~0.053 in turns), the
-// global route forced there ~0.020; the Gaussian at n = 256 takes ~0.12
-// ms at d = 240 and ~0.57 ms at d = 300. Tried and dropped: the chain
+// global route forced there ~0.021; the Gaussian at n = 256 takes ~0.35
+// ms at d = 240 and ~0.63 ms at d = 300. Tried and dropped: the chain
 // warps running while the other warps prepare later generations behind
 // a ready flag a generation (slower: the preparing warps slowed the
 // chain warps' generations by ~30 %), and one warp copying a row (three
@@ -301,16 +302,16 @@ struct Chunk {
   int next_slot, next_row, next_t, use_slot;
   bool vec_inv;
 
-  __device__ __forceinline__ float* slot_base(int c, int gl) const {
+  __device__ __forceinline__ float* slot_base(int c, int g) const {
     return smem + p.off_stage +
-           (static_cast<size_t>(gl) * p.cpb + c) * p.slot;
+           (static_cast<size_t>(g) * p.cpb + c) * p.slot;
   }
 
-  __device__ __forceinline__ Slot slot(int c, int g, int gl) const {
+  __device__ __forceinline__ Slot slot(int c, int g) const {
     const int ld = p.ld;
     if constexpr (kRoute == kShared) {
       // rows [R][ld], prep [ld], the draws [3][ld + 4], scal
-      float* base = slot_base(c, gl);
+      float* base = slot_base(c, g);
       float* prep = base + static_cast<size_t>(p.rows) * ld;
       float* draws = prep + ld;
       const int ds = ld + 4;
@@ -350,19 +351,19 @@ struct Chunk {
              static_cast<long long>(v) * p.ld;
   }
 
-  // Calls f(gl, c, w, o) for o < per, w < nw, every item (gl, c) of a
-  // batch of nb generations, spread over the block's threads: index e =
-  // ((gl nc + c) nw + w) per + o, stepped with no division a step.
+  // Calls f(g, c, w, o) for o < per, w < nw, every item (g, c) of the G
+  // generations and the block's chains, spread over the block's threads:
+  // index e = ((g nc + c) nw + w) per + o, stepped with no division a
+  // step.
   template <class F>
-  __device__ __forceinline__ void for_copies(int nb, int nw, int per,
-                                             F f) const {
-    const int total = nb * nc * nw * per;
+  __device__ __forceinline__ void for_copies(int nw, int per, F f) const {
+    const int total = a.G * nc * nw * per;
     int e = threadIdx.x;
     int o = e % per, w = (e / per) % nw, it = e / per / nw;
-    int c = it % nc, gl = it / nc;
+    int c = it % nc, g = it / nc;
     const int su = kThreads / per, so = kThreads % per;
     for (; e < total; e += kThreads) {
-      f(gl, c, w, o);
+      f(g, c, w, o);
       o += so;
       w += su;
       if (o >= per) {
@@ -372,41 +373,41 @@ struct Chunk {
       for (; w >= nw; w -= nw) {
         if (++c == nc) {
           c = 0;
-          ++gl;
+          ++g;
         }
       }
     }
   }
 
-  // Shared route: batch [b, b + nb)'s inputs of the block's chains into
+  // Shared route: the G generations' inputs of the block's chains into
   // their slots (the caller commits and waits). The archive rows go 16
   // bytes a copy where d and their address allow it, else 4; in stream
   // mode each draw row goes by the aligned 16-byte windows of device
   // memory that it covers, placed quad_shift floats past its slot row so
   // that each window lands aligned, a window it covers only in part a
   // float at a time; then the scal rows.
-  __device__ void stage(int b, int nb) const {
+  __device__ void stage() const {
     const int d = a.d, R = p.rows, ld = p.ld;
-    const auto row_of = [&](int gl, int c) {
-      return static_cast<long long>(b + gl) * a.n + chain0 + c;
+    const auto row_of = [&](int g, int c) {
+      return static_cast<long long>(g) * a.n + chain0 + c;
     };
     const bool vec = d % 4 == 0 && aligned16(a.rows);
-    for_copies(nb, R, vec ? d / 4 : d, [&](int gl, int c, int w, int o) {
-      const float* src = a.rows + (row_of(gl, c) * a.k + w) * d;
-      float* dst = slot_base(c, gl) + static_cast<size_t>(w) * ld;
+    for_copies(R, vec ? d / 4 : d, [&](int g, int c, int w, int o) {
+      const float* src = a.rows + (row_of(g, c) * a.k + w) * d;
+      float* dst = slot_base(c, g) + static_cast<size_t>(w) * ld;
       if (vec)
         cp_async16(dst + 4 * o, src + 4 * o);
       else
         cp_async4(dst + o, src + o);
     });
     if constexpr (!kKernelRng) {
-      for_copies(nb, kDraws, d / 4 + 2, [&](int gl, int c, int w, int o) {
-        const long long row = row_of(gl, c);
+      for_copies(kDraws, d / 4 + 2, [&](int g, int c, int w, int o) {
+        const long long row = row_of(g, c);
         const float* src = w == 0 ? a.um + row * a.ld_um
                                   : (w == 1 ? a.ue + row * a.ld_ue
                                             : a.ep + row * a.ld_ep);
         const int sh = quad_shift(src);
-        float* dst = slot_base(c, gl) + static_cast<size_t>(R + 1) * ld +
+        float* dst = slot_base(c, g) + static_cast<size_t>(R + 1) * ld +
                      static_cast<size_t>(w) * (ld + 4) + 4 * o;
         const int j0 = 4 * o - sh;             // the window's first float
         if (j0 >= 0 && j0 + 4 <= d) {
@@ -418,10 +419,10 @@ struct Chunk {
         }
       });
     }
-    for_copies(nb, 1, kScal, [&](int gl, int c, int, int o) {
-      cp_async4(slot_base(c, gl) + static_cast<size_t>(R + 1) * ld +
+    for_copies(1, kScal, [&](int g, int c, int, int o) {
+      cp_async4(slot_base(c, g) + static_cast<size_t>(R + 1) * ld +
                     static_cast<size_t>(kDraws) * (ld + 4) + o,
-                a.scal + row_of(gl, c) * kScal + o);
+                a.scal + row_of(g, c) * kScal + o);
     });
   }
 
@@ -446,19 +447,19 @@ struct Chunk {
     }
   }
 
-  // Kernel-RNG mode: batch [b, b + nb)'s draws for the block's chains,
+  // Kernel-RNG mode: the G generations' draws for the block's chains,
   // element by element over the block's threads, written where prepare
   // reads them (a snooker item's are made too and not read)
-  __device__ void draw(int b, int nb) const {
+  __device__ void draw() const {
     const int d = a.d;
     const int per_gen = nc * d;
-    int key_gl = -1;
+    int key_g = -1;
     uint2 key = make_uint2(0u, 0u);
-    for (int e = threadIdx.x; e < nb * per_gen; e += blockDim.x) {
-      const int gl = e / per_gen, rest = e - gl * per_gen;
+    for (int e = threadIdx.x; e < a.G * per_gen; e += blockDim.x) {
+      const int g = e / per_gen, rest = e - g * per_gen;
       const int c = rest / d, j = rest - c * d;
       const long long chain = chain0 + c;
-      const long long row = static_cast<long long>(b + gl) * a.n + chain;
+      const long long row = static_cast<long long>(g) * a.n + chain;
       unsigned wm, we, wn;
       if (a.tb_m != nullptr) {
         const long long at = row * d + j;
@@ -466,10 +467,10 @@ struct Chunk {
         we = a.tb_e[at];
         wn = a.tb_n[at];
       } else {
-        if (gl != key_gl) {
+        if (g != key_g) {
           key = bipymc::kernel_seed(
-              a.key, static_cast<unsigned long long>(a.t0 + b + gl));
-          key_gl = gl;
+              a.key, static_cast<unsigned long long>(a.t0 + g));
+          key_g = g;
         }
         const uint4 w = bipymc::philox4x32_10(
             make_uint4(static_cast<unsigned>(j),
@@ -479,21 +480,20 @@ struct Chunk {
         we = w.y;
         wn = w.z;
       }
-      const Slot sl = slot(c, b + gl, gl);
+      const Slot sl = slot(c, g);
       sl.dw[j] = bits_to_uniform(wm);
       sl.dw[sl.ds + j] = bits_to_uniform(we);
       sl.dw[2 * sl.ds + j] = uniform_to_normal(bits_to_uniform(wn));
     }
   }
 
-  // The state-free part of chain c's generation g (gl its index in the
-  // batch), by one warp, after draw in kernel-RNG mode: for a parallel
-  // move the first-min lane, the mask count, d_eff, gamma, and the
-  // increment inc = m ((1 + e) gamma diff + b* eps) into prep; for a
-  // snooker move r1 - r2 into prep. Each lane reads and writes only its
-  // own quads.
-  __device__ void prepare(int c, int g, int gl) const {
-    const Slot s = slot(c, g, gl);
+  // The state-free part of chain c's generation g, by one warp, after
+  // draw in kernel-RNG mode: for a parallel move the first-min lane, the
+  // mask count, d_eff, gamma, and the increment inc = m ((1 + e) gamma
+  // diff + b* eps) into prep; for a snooker move r1 - r2 into prep. Each
+  // lane reads and writes only its own quads.
+  __device__ void prepare(int c, int g) const {
+    const Slot s = slot(c, g);
     const int d = a.d;
     if (s.sc[kSnooker] > 0.5f) {
       for (int t = 0; t < groups; ++t) {
@@ -724,12 +724,10 @@ struct Chunk {
     }
   }
 
-  // Chain c's generation g (gl its index in the batch): the proposal y
-  // from x, the target, the accept, the history row. X and Y swap where
-  // the proposal is accepted.
-  __device__ void step(int c, int g, int gl, float& lp, float*& X,
-                       float*& Y) {
-    const Slot s = slot(c, g, gl);
+  // Chain c's generation g: the proposal y from x, the target, the
+  // accept, the history row. X and Y swap where the proposal is accepted.
+  __device__ void step(int c, int g, float& lp, float*& X, float*& Y) {
+    const Slot s = slot(c, g);
     const int d = a.d;
     float* R = kKind == 0 ? vec(c, kR) : nullptr;
     const bool snk = s.sc[kSnooker] > 0.5f;
@@ -883,23 +881,19 @@ fused_chunk_kernel(Args a, Plan p) {
     if (kRoute == kGlobal && kKind == 0)
       for (int t = 0; t < kTiles - 1; ++t) ck.issue_tile();
   }
-  for (int b = 0; b < a.G; b += p.gens) {
-    const int nb = a.G - b < p.gens ? a.G - b : p.gens;
-    if constexpr (kRoute == kShared) {
-      if (b == 0) ck.stage_consts(smem + p.off_c);
-      ck.stage(b, nb);
-      cp_async_commit();
-    }
-    if constexpr (kKernelRng) ck.draw(b, nb);   // while the copies fly
-    if constexpr (kRoute == kShared) cp_async_wait<0>();
-    __syncthreads();               // inputs, constants, x, log_w in place
-    for (int it = warp; it < nb * ck.nc; it += kWarps)
-      ck.prepare(it % ck.nc, b + it / ck.nc, it / ck.nc);
-    __syncthreads();               // every item prepared
-    if (owner)
-      for (int gl = 0; gl < nb; ++gl) ck.step(warp, b + gl, gl, lp, X, Y);
-    if (b + nb < a.G) __syncthreads();   // the slots are free again
+  if constexpr (kRoute == kShared) {
+    ck.stage_consts(smem + p.off_c);
+    ck.stage();
+    cp_async_commit();
   }
+  if constexpr (kKernelRng) ck.draw();   // while the copies fly
+  if constexpr (kRoute == kShared) cp_async_wait<0>();
+  __syncthreads();                 // inputs, constants, x, log_w in place
+  for (int it = warp; it < a.G * ck.nc; it += kWarps)
+    ck.prepare(it % ck.nc, it / ck.nc);
+  __syncthreads();                 // every item prepared
+  if (owner)
+    for (int g = 0; g < a.G; ++g) ck.step(warp, g, lp, X, Y);
   cp_async_wait<0>();              // no copy outlives the block
 }
 
@@ -929,9 +923,8 @@ KernelFn pick(int kind, int n_modes, bool kernel_rng) {
 }  // namespace
 
 // The plan fused_chunk_launch makes for these shapes, into plan_out
-// (int[7]): route (0 shared, 1 global), chains a block, threads a block,
-// dynamic shared bytes, staging (0 none, 1 batches, 2 all G generations),
-// generations a batch and ld (the floats of a vector: the global route's
+// (int[5]): route (0 shared, 1 global), chains a block, threads a block,
+// dynamic shared bytes and ld (the floats of a vector: the global route's
 // workspace is [n, 3 + 3 G, ld] floats). route: -1 the route the shape
 // takes, else 0-1 forced. Returns 0, or -1 where the route does not take
 // the shape.
@@ -946,9 +939,7 @@ extern "C" int fused_chunk_plan(int n, int d, int G, int n_pairs, int kind,
   plan_out[1] = p.cpb;
   plan_out[2] = p.threads;
   plan_out[3] = static_cast<int>(p.smem);
-  plan_out[4] = p.stage;
-  plan_out[5] = p.gens;
-  plan_out[6] = p.ld;
+  plan_out[4] = p.ld;
   return 0;
 }
 

@@ -9,8 +9,7 @@
 
 namespace b1plan {
 
-constexpr int kShared = 0, kGlobal = 1;                          // routes
-constexpr int kStageNone = 0, kStageBatch = 1, kStageWhole = 2;  // inputs
+constexpr int kShared = 0, kGlobal = 1;   // routes
 constexpr int kThreads = 256;      // threads a block, both routes
 constexpr int kMaxCpb = 8;         // shared route: chains a block
 constexpr int kCpbN = 128;         // chains a block = n / kCpbN
@@ -24,7 +23,7 @@ constexpr int kDraws = 3;          // u_mask, u_e, eps rows a generation
 constexpr int kWorkVecs = 3;       // global route: x, y, r a chain
 
 struct Plan {
-  int route, cpb, threads, stage, gens, ld, rows;
+  int route, cpb, threads, ld, rows;
   std::size_t smem;                // bytes of dynamic shared memory
   // float offsets: the constants (shared route) or the first chain's ring
   // (global route), the chains' vectors, the slots
@@ -46,9 +45,9 @@ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
 // inputs staged in a slot: its rows [ld], the prepared vector [ld], the
 // draws [ld + 4] (a row placed at its address's offset in a quad) and a
 // scal row (ld = d rounded up to 4). n / kCpbN chains a block (1 to
-// kMaxCpb): the largest count whose slots for all G generations fit
-// (staging "whole"), else the largest that fits one generation's
-// (staging "batch", as many generations a batch as fit).
+// kMaxCpb): the largest count whose slots for all G generations fit. A
+// shape where one chain's vectors and G slots do not fit beside the
+// constants takes the global route (the Gaussian past d = 192 at G = 10).
 // Global route: the constants read from device memory, the Gaussian's
 // inverse through a ring of kTiles tiles a chain (kTJ rows x kGroup
 // columns), and each chain's vectors in a workspace of
@@ -75,27 +74,19 @@ inline bool chunk_plan(int n, int d, int G, int n_pairs, int kind,
         kind == 0 ? static_cast<std::size_t>(d + 1) * ld
                   : static_cast<std::size_t>(n_modes) * ld;
     const int vecs = kind == 0 ? 3 : 2;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int cpb = cpb0; cpb >= 1; --cpb) {
-        const std::size_t fixed = kModes + consts +
-                                  static_cast<std::size_t>(cpb) * vecs * ld;
-        if (fixed > room) continue;
-        std::size_t gens = (room - fixed) / (cpb * slot);
-        if (gens > static_cast<std::size_t>(G)) gens = G;
-        if (pass == 0 ? gens < static_cast<std::size_t>(G) : gens < 1)
-          continue;
-        p->route = kShared;
-        p->cpb = cpb;
-        p->stage = gens == static_cast<std::size_t>(G) ? kStageWhole
-                                                        : kStageBatch;
-        p->gens = static_cast<int>(gens);
-        p->off_c = kModes;
-        p->off_vec = kModes + consts;
-        p->off_stage = p->off_vec + static_cast<std::size_t>(cpb) * vecs * ld;
-        p->smem = sizeof(float) * (p->off_stage + cpb * gens * slot);
-        p->work = 0;
-        return true;
-      }
+    for (int cpb = cpb0; cpb >= 1; --cpb) {
+      const std::size_t fixed =
+          kModes + consts + static_cast<std::size_t>(cpb) * vecs * ld;
+      const std::size_t staged = static_cast<std::size_t>(cpb) * G * slot;
+      if (fixed + staged > room) continue;
+      p->route = kShared;
+      p->cpb = cpb;
+      p->off_c = kModes;
+      p->off_vec = kModes + consts;
+      p->off_stage = p->off_vec + static_cast<std::size_t>(cpb) * vecs * ld;
+      p->smem = sizeof(float) * (fixed + staged);
+      p->work = 0;
+      return true;
     }
     if (force == kShared) return false;
   }
@@ -108,8 +99,6 @@ inline bool chunk_plan(int n, int d, int G, int n_pairs, int kind,
     if (fl > room) continue;
     p->route = kGlobal;
     p->cpb = cpb;
-    p->stage = kStageNone;
-    p->gens = G;
     p->off_c = p->off_vec = p->off_stage = kModes;
     p->smem = sizeof(float) * fl;
     p->work = static_cast<std::size_t>(kWorkVecs + kDraws * G) * ld;

@@ -36,8 +36,8 @@ The kernel has two routes, chosen in one place in C
 target's constants in shared memory once a block, every generation's
 inputs staged there before the generations run; config 3's) and the
 global route (the constants read from device memory, the Gaussian's
-inverse through a ring in shared memory: the Gaussian past d ≈ 235, the
-mixture where its means do not fit). :func:`plan` mirrors the choice,
+inverse through a ring in shared memory: the Gaussian past d = 192 at
+G = 10, the mixture where its means and the staged inputs do not fit). :func:`plan` mirrors the choice,
 for the CPU tests and for printing, and ``fused_chunk.last_plan`` is
 what the last launch took. The routes compute in one order, so their
 outputs are equal bit for bit.
@@ -69,7 +69,6 @@ S_DELTA, S_CR, S_GS, S_SNK, S_GJUMP, S_LOGU = 0, 1, 2, 3, 4, 5
 N_SCAL = 6
 
 ROUTES = ("shared", "global")
-STAGING = ("none", "batch", "whole")
 # The H100's shared memory a block may opt in to, bytes (the entry point
 # reads the card's own figure)
 MAX_SHARED_BYTES = 232_448
@@ -90,11 +89,9 @@ def plan(n: int, d: int, G: int, n_pairs: int, kind: int, n_modes: int = 0,
     """The launch ``csrc/fused_chunk_plan.cuh::chunk_plan`` makes for n
     chains in d dimensions, G generations, ``n_pairs`` DE pairs, on target
     ``kind`` (0 the correlated Gaussian, 1 the mixture of ``n_modes``):
-    ``(route, chains a block, threads, shared bytes, staging, generations
-    a batch)``. The shared route keeps the target's constants in shared
-    memory, with staging ``"whole"`` (every generation's inputs staged at
-    the start) or ``"batch"`` (as many generations a batch as fit); the
-    global route (staging ``"none"``) reads them from device memory.
+    ``(route, chains a block, threads, shared bytes)``. The shared route
+    keeps the target's constants and every generation's inputs in shared
+    memory; the global route reads them from device memory.
     ``route=None`` takes the shared route where it fits
     :data:`MAX_SHARED_BYTES`, else the global one. None where the route
     asked for does not take the shape, or for a mixture of more than
@@ -108,25 +105,16 @@ def plan(n: int, d: int, G: int, n_pairs: int, kind: int, n_modes: int = 0,
     if route != "global":
         consts = (d + 1) * ld if kind == 0 else n_modes * ld
         vecs = 3 if kind == 0 else 2       # x, y (and r, the Gaussian)
-        cpb0 = min(max(n // _CPB_N, 1), _MAX_CPB)
-        for whole in (True, False):
-            for cpb in range(cpb0, 0, -1):
-                fixed = MAX_MODES + consts + cpb * vecs * ld
-                if fixed > room:
-                    continue
-                gens = min((room - fixed) // (cpb * slot), G)
-                if gens < (G if whole else 1):
-                    continue
-                return ("shared", cpb, _THREADS,
-                        4 * (fixed + cpb * gens * slot),
-                        "whole" if gens == G else "batch", gens)
+        for cpb in range(min(max(n // _CPB_N, 1), _MAX_CPB), 0, -1):
+            smem = MAX_MODES + consts + cpb * vecs * ld + cpb * G * slot
+            if smem <= room:
+                return ("shared", cpb, _THREADS, 4 * smem)
         if route == "shared":
             return None
     ring = _TILES * _TJ * _GROUP if kind == 0 else 0
     for cpb in range(min(max(n // _CPB_N, 1), _GLOBAL_CPB), 0, -1):
         if MAX_MODES + cpb * ring <= room:
-            return ("global", cpb, _THREADS, 4 * (MAX_MODES + cpb * ring),
-                    "none", G)
+            return ("global", cpb, _THREADS, 4 * (MAX_MODES + cpb * ring))
     return None
 
 
@@ -224,7 +212,7 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
     lds = _check_operands(x0, logp0, rows, u_mask, u_e, eps, scal,
                           test_bits)
     force = -1 if route is None else ROUTES.index(route)
-    chosen = (ctypes.c_int * 7)()
+    chosen = (ctypes.c_int * 5)()
     err = _build.library("fused_chunk_plan")(
         n, d, G, n_pairs, kind, n_modes, force, ctypes.addressof(chosen))
     if err == _build.ERR_SHARED_MEMORY:
@@ -237,7 +225,7 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
     acc_hist = torch.empty((G, n), dtype=torch.bool, device=dev)
     # the global route's workspace: a chain's x, y, r and each
     # generation's draws and prepared vector
-    work = (torch.empty((n, _WORK_VECS + _DRAWS * G, chosen[6]),
+    work = (torch.empty((n, _WORK_VECS + _DRAWS * G, chosen[4]),
                         dtype=torch.float32, device=dev)
             if ROUTES[chosen[0]] == "global" else None)
     ptr = lambda a: None if a is None else a.data_ptr()
@@ -251,8 +239,7 @@ def fused_chunk(x0, logp0, rows, u_mask, u_e, eps, scal, log_prob, *,
         ptr(work), x_hist.data_ptr(), lp_hist.data_ptr(),
         acc_hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_chunk")
-    fused_chunk.last_plan = (ROUTES[chosen[0]], *chosen[1:4],
-                             STAGING[chosen[4]], chosen[5])
+    fused_chunk.last_plan = (ROUTES[chosen[0]], *chosen[1:4])
     fused_chunk.launches += 1
     fused_chunk.kernel_rng_launches += kernel_rng
     return x_hist, lp_hist, acc_hist

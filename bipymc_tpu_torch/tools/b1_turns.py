@@ -19,7 +19,16 @@ builds its own kernels), from the root of the checkout::
     python bipymc_tpu_torch/tools/b1_turns.py compare p1.pt c1.pt c2.pt p2.pt
 
 and the same with ``kernel`` after each ``run``'s output file for
-kernel-RNG mode. ``ops`` makes the operands of both modes with this
+kernel-RNG mode. ``wide`` times this checkout's B1 on the correlated
+Gaussian past the shared route (n = 256, G = 10, d = 240 and 300, both
+modes) four ways, to tell a slow kernel from a slow reading: launch by
+launch after the card idled a second (CUDA events around each launch,
+synchronised), back to back (events around 200 launches), by the
+profiler over 200 launches after 20 of warm-up (as ``chip_smoke.py``
+times it) and over 20 after 3, while ``nvidia-smi`` samples the SM and
+memory clocks, the power draw and the temperature every 100 ms::
+
+    python bipymc_tpu_torch/tools/b1_turns.py wide ``ops`` makes the operands of both modes with this
 checkout's package; ``run`` prints one JSON line with B1's device time a
 launch (the kernels' own durations from ``torch.profiler`` over 200
 launches after 20 of warm-up, as ``chip_smoke.py`` times it) and saves
@@ -112,6 +121,111 @@ def run(root, ops_path, out, mode="stream"):
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def _wide_operands(G, n, d, seed, dev):
+    """x0, rows, u_mask, u_e, eps, scal as ``chip_smoke.py`` phase 2e
+    builds its wide cases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(generator=g, device=dev, dtype=torch.float32)
+    x0 = 2.0 * torch.randn((n, d), **f32)
+    rows = x0[None, :, None, :] + 2.0 * torch.randn((G, n, 6, d), **f32)
+    block = torch.rand((G, n, 2 * d + 4), **f32)
+    jump = torch.zeros((G, n), device=dev)
+    jump[G // 2] = 1.0
+    scal = torch.stack([
+        torch.clamp_max(1.0 + torch.floor(torch.rand((G, n), **f32) * 3),
+                        3.0),
+        torch.randint(1, 4, (G, n), generator=g, device=dev).float() / 3.0,
+        1.2 + torch.rand((G, n), **f32),
+        (torch.rand((G, n), **f32) < 0.3).float(), jump,
+        torch.rand((G, n), **f32).clamp_min(1e-7).log()], -1)
+    return (x0, rows, block[..., 4:4 + d], block[..., 4 + d:],
+            torch.randn((G, n, d), **f32), scal)
+
+
+def _events_ms(fn, reps, each):
+    """ms a launch by CUDA events: around each launch, synchronised after
+    it (``each``: the list of launches), or around ``reps`` launches back
+    to back (their mean)."""
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    if not each:
+        e[0].record()
+        for _ in range(reps):
+            fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        return e[0].elapsed_time(e[1]) / reps
+    out = []
+    for _ in range(reps):
+        e[0].record()
+        fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        out.append(e[0].elapsed_time(e[1]))
+    return out
+
+
+def wide():
+    import subprocess
+    import threading
+    import time
+
+    import numpy as np
+
+    bt = _package(HERE)
+    from bipymc_tpu_torch.ops.fused_chunk import fused_chunk
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    samples = []
+    reader = threading.Thread(target=lambda: samples.extend(smi.stdout),
+                              daemon=True)
+    reader.start()
+    try:
+        for i, d in enumerate((240, 300)):
+            rng = np.random.default_rng(d)
+            a = rng.standard_normal((d, d))
+            lp = bt.correlated_gaussian(rng.standard_normal(d),
+                                        a @ a.T / d + np.eye(d))
+            x0, rows, um, ue, ep, scal = _wide_operands(10, N_CHAINS, d,
+                                                        4 + i, dev)
+            lp0 = lp(x0)
+            kw = dict(KW, d_true=d)
+            for mode in ("stream", "kernel"):
+                if mode == "kernel":
+                    fn = lambda: fused_chunk(
+                        x0, lp0, rows, None, None, None, scal, lp,
+                        rng="kernel", run_key=0xF123456789ABCDEF, t0=40,
+                        **kw)
+                else:
+                    fn = lambda: fused_chunk(x0, lp0, rows, um, ue, ep,
+                                             scal, lp, **kw)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(1.0)
+                t0 = len(samples)
+                each = _events_ms(fn, 40, True)
+                back = _events_ms(fn, 200, False)
+                prof = device_ms(fn)
+                after = _events_ms(fn, 20, True)
+                time.sleep(1.0)
+                short = device_ms(fn, reps=20, warmup=3)
+                print(json.dumps({
+                    "d": d, "mode": mode,
+                    "each_after_idle_ms": each,
+                    "back_to_back_200_ms": back,
+                    "profiler_200_after_20_ms": prof,
+                    "each_after_those_ms": after,
+                    "profiler_20_after_3_after_idle_ms": short,
+                    "smi_samples": [x.strip() for x in samples[t0:]],
+                    "card": torch.cuda.get_device_name(0)}), flush=True)
+    finally:
+        smi.terminate()
+        smi.wait(timeout=30)
+
+
 def compare(paths):
     first = torch.load(paths[0])
     readings = {}
@@ -138,6 +252,8 @@ def main(argv):
         run(*args)
     elif cmd == "compare":
         return compare(args)
+    elif cmd == "wide":
+        wide()
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -90,9 +90,14 @@ non-zero:
    logp within ``B1_TOL``. Each case's launch must take
    ``ops/fused_chunk.plan``'s launch (printed), and every route forced
    that takes the shape (shared, global) must give the chosen route's
-   outputs bit for bit. Timed at config 3's shape (the two routes in
-   turns: shared, global, global, shared) and at d = 240 and 300 beside
-   their bounds. Then B1 in kernel-RNG mode (Philox drawn in the kernel)
+   outputs bit for bit. Timed (device ms a launch over the launches the
+   profiler recorded, which in a long process misses some at the start
+   of each profile) at config 3's shape (the two routes in turns: shared,
+   global, global, shared) and at d = 240 and 300 beside
+   their bounds (in turns, 240, 300, 300, 240 twice, at config 3's reps
+   and warm-up, by the profiler with the launches it recorded and by CUDA
+   events; then each after the card idled a second, at 20 reps and 3 of
+   warm-up). Then B1 in kernel-RNG mode (Philox drawn in the kernel)
    against its plain version on the same words
    (``core/rng.kernel_draw_bits``), on the kernel-RNG runner's own
    config-3 operands under the main path's run key from its first chunk
@@ -101,8 +106,8 @@ non-zero:
    routes; fed stream mode's words of the config-3 chunk as
    ``test_bits``, against stream-mode B1 on that chunk (the same rule).
    Timed at config 3's shape, stream and kernel-RNG mode in turns
-   (stream, kernel, kernel, stream), and at d = 240 and 300; its own
-   record in the kernels line.
+   (stream, kernel, kernel, stream), and at d = 240 and 300 as in stream
+   mode; its own record in the kernels line.
 2g. B11 (``gather_rows``) against its plain version on the card, every
    case bit-equal (``torch.equal``): the fused chunk's [10, 256, 6]
    indices, drawn by B3 from the config-3 run's words after burn-in, into
@@ -644,6 +649,69 @@ def b1_check_plan(shape, label):
 B1_WIDE_D = (240, 300)
 
 
+def b1_timed(fn, reps, warmup):
+    """B1 over ``reps`` launches after ``warmup``: its device ms a launch
+    over the launches the profiler recorded, that count, its device ms
+    over ``reps`` (as ``device_ms`` reads it), and ms a launch by CUDA
+    events around the same launches, back to back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "fused_chunk" in e.key]
+    us = sum(e.self_device_time_total for e in rows)
+    n = sum(e.count for e in rows)
+    if n == 0:
+        raise AssertionError("the profiler recorded no launch of B1")
+    return us / n / 1e3, n, us / reps / 1e3, e0.elapsed_time(e1) / reps
+
+
+def b1_wide_times(calls):
+    """B1 at the wide shapes: ``calls`` maps d to (the launch, bytes,
+    operations). In turns (d = 240, 300, 300, 240, twice) at config 3's
+    200 reps after 20 of warm-up: device ms a launch over the launches
+    the profiler recorded, their median and spread ((max − min) / min),
+    the counts, and CUDA events around the same launches; then each once
+    after the card idled a second, at 20 reps after 3 of warm-up, the
+    timing these cases first had (``ms_over_reps``: the profiler's device
+    time over the 20, as ``device_ms`` reads it)."""
+    order = list(calls) + list(calls)[::-1]
+    turns = {d: [] for d in calls}
+    for d in order * 2:
+        turns[d].append(b1_timed(calls[d][0], 200, 20))
+    wide = {}
+    for d, (fn, n_bytes, n_ops) in calls.items():
+        time.sleep(1.0)
+        ms = sorted(t[0] for t in turns[d])
+        idle = b1_timed(fn, 20, 3)
+        wide[f"d{d}"] = {
+            "ms": (ms[1] + ms[2]) / 2,
+            "turns_ms": [t[0] for t in turns[d]],
+            "turns_recorded": [t[1] for t in turns[d]],
+            "turns_events_ms": [t[3] for t in turns[d]],
+            "spread": (ms[-1] - ms[0]) / ms[0],
+            "after_idle_20_reps": {"ms": idle[0], "recorded": idle[1],
+                                   "ms_over_reps": idle[2],
+                                   "events_ms": idle[3]},
+            "bound_ms": bound_ms(n_bytes, n_ops),
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                         >= n_ops / FP32_OPS_PER_S else "operations"),
+            "route": "global"}
+    return wide
+
+
 def config3_burned_in(dev):
     """Config 3's target, means and per-generation sampler after its
     burn-in: the state and archive the fused runner starts from."""
@@ -682,7 +750,7 @@ def check_b1(dev):
     cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
              (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
     cases += [(10, N_CHAINS, d, "gaussian") for d in B1_WIDE_D]
-    wide = {}
+    calls = {}
     for i, (G, n, d, kind) in enumerate(cases):
         label = f"G={G} n={n} d={d} {kind}"
         tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
@@ -702,15 +770,13 @@ def check_b1(dev):
                                       **kw_d), o, b1_shape(tgt, G, n, d),
                 label)}
         if d in B1_WIDE_D:
-            n_bytes, n_ops = b1_work(x0, rest[0], rest[4], 0)
-            wide[f"d{d}"] = {
-                "ms": device_ms(lambda: fused_chunk(x0, t_lp0, *rest, tgt,
-                                                    **kw_d), reps=20,
-                                warmup=3),
-                "bound_ms": bound_ms(n_bytes, n_ops),
-                "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                             >= n_ops / FP32_OPS_PER_S else "operations"),
-                "route": readings[label]["plan"][0]}
+            if readings[label]["plan"][0] != "global":
+                raise AssertionError(f"B1 ({label}) took the shared route")
+            calls[d] = (lambda x0=x0, t_lp0=t_lp0, rest=rest, tgt=tgt,
+                        kw_d=kw_d: fused_chunk(x0, t_lp0, *rest, tgt,
+                                               **kw_d),
+                        *b1_work(x0, rest[0], rest[4], 0))
+    wide = b1_wide_times(calls)
     log("B1 fused_chunk: against the plain version, limits "
         f"{json.dumps(B1_TOL)}:", json.dumps(readings))
     log("B1 fused_chunk, the Gaussian past the shared route (n = 256, "
@@ -721,12 +787,16 @@ def check_b1(dev):
     forced = lambda r: (lambda: fused_chunk(st.x, lp0, *ops, lp, route=r,
                                             **kw))
     # the two routes in turns at config 3: shared, global, global, shared
-    turns = [device_ms(forced(r)) for r in ("shared", "global", "global",
-                                            "shared")]
+    # (device ms a launch over the launches the profiler recorded)
+    timed = [b1_timed(forced(r), 200, 20) for r in ("shared", "global",
+                                                    "global", "shared")]
+    turns = [t[0] for t in timed]
     log("B1 device ms at config 3 in turns (shared, global, global, "
-        "shared):", json.dumps(turns))
-    times = (device_ms(kernel), device_ms(plain, reps=20, warmup=3),
-             call_ms(kernel), call_ms(plain, reps=30, warmup=3))
+        "shared), the launches recorded of 200:",
+        json.dumps([turns, [t[1] for t in timed]]))
+    times = (b1_timed(kernel, 200, 20)[0],
+             device_ms(plain, reps=20, warmup=3), call_ms(kernel),
+             call_ms(plain, reps=30, warmup=3))
     n_bytes, n_ops = b1_work(st.x, ops[0], ops[4], len(means))
     rec = kernel_record(
         "fused_chunk", "bipymc_tpu_torch/csrc/fused_chunk.cu",
@@ -814,7 +884,7 @@ def check_b1_kernel_rng(dev):
     cases = [(1, 7, 3, "mixture"), (1, 7, 3, "gaussian"),
              (10, 37, 129, "gaussian"), (5, 8, 4, "nonfinite")]
     cases += [(10, N_CHAINS, d, "gaussian") for d in B1_WIDE_D]
-    wide = {}
+    calls = {}
     for i, (G, n, d, kind) in enumerate(cases):
         label = f"G={G} n={n} d={d} {kind}"
         tgt = b4_target("gaussian" if kind == "gaussian" else "mixture", d)
@@ -837,15 +907,13 @@ def check_b1_kernel_rng(dev):
                                        tgt, route=rt, **kw_d), o,
                 b1_shape(tgt, G, n, d), label)}
         if d in B1_WIDE_D:
-            n_bytes, n_ops = b1_work(x0, r, sc, 0, kernel_rng=True)
-            wide[f"d{d}"] = {
-                "ms": device_ms(lambda: fused_chunk(x0, t_lp0, r, None, None,
-                                                    None, sc, tgt, **kw_d),
-                                reps=20, warmup=3),
-                "bound_ms": bound_ms(n_bytes, n_ops),
-                "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
-                             >= n_ops / FP32_OPS_PER_S else "operations"),
-                "route": readings[label]["plan"][0]}
+            if readings[label]["plan"][0] != "global":
+                raise AssertionError(f"B1 ({label}) took the shared route")
+            calls[d] = (lambda x0=x0, t_lp0=t_lp0, r=r, sc=sc, tgt=tgt,
+                        kw_d=kw_d: fused_chunk(x0, t_lp0, r, None, None,
+                                               None, sc, tgt, **kw_d),
+                        *b1_work(x0, r, sc, 0, kernel_rng=True))
+    wide = b1_wide_times(calls)
 
     # stream mode's own words as test_bits: the decisions of stream-mode
     # B1 on the same chunk (a bit excused only at a plain near tie)
@@ -879,10 +947,13 @@ def check_b1_kernel_rng(dev):
         st.x, lp0, rows, scal, lp, run_key=key, t0=BURNIN, **kw)
     stream_fn = lambda: fused_chunk(st.x, lp0, *s_ops, lp, **kw)
     # the two modes in turns on the same chunk: stream, kernel, kernel,
-    # stream
-    turns = [device_ms(f) for f in (stream_fn, kernel, kernel, stream_fn)]
-    log("B1 device ms in turns (stream, kernel RNG, kernel RNG, stream):",
-        json.dumps(turns))
+    # stream (device ms a launch over the launches the profiler recorded)
+    timed = [b1_timed(f, 200, 20) for f in (stream_fn, kernel, kernel,
+                                            stream_fn)]
+    turns = [t[0] for t in timed]
+    log("B1 device ms in turns (stream, kernel RNG, kernel RNG, stream), "
+        "the launches recorded of 200:",
+        json.dumps([turns, [t[1] for t in timed]]))
     times = (min(turns[1:3]), device_ms(plain, reps=20, warmup=3),
              call_ms(kernel), call_ms(plain, reps=30, warmup=3))
     n_bytes, n_ops = b1_work(st.x, rows, scal, len(means), kernel_rng=True)

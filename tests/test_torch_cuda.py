@@ -512,7 +512,14 @@ def _b1_both(lp, ops, d, route=None):
 B1_SHAPES = [(10, 256, 100, "mixture", 4), (10, 256, 100, "mixture", 11),
              (1, 7, 3, "mixture", 4), (1, 7, 3, "gaussian", 5),
              (10, 37, 129, "gaussian", 4), (5, 32, 8, "mixture", 7),
+             (10, 256, 192, "gaussian", 4), (10, 256, 220, "gaussian", 4),
              (10, 64, 240, "gaussian", 4), (4, 256, 300, "gaussian", 11)]
+
+
+def _b1_shared_takes(G, n, d, kind):
+    """The shared route takes the shape (both routes then run it)."""
+    modes = (0, 0) if kind == "gaussian" else (1, 4)
+    return b1.plan(n, d, G, 3, *modes, "shared") is not None
 
 
 @pytest.mark.cuda
@@ -654,19 +661,24 @@ def _b1_hold(out, ref, ref_la, scal):
 @pytest.mark.parametrize("G,n,d,kind,key", [
     (10, 256, 100, "mixture", KEY), (10, 256, 100, "mixture", KEY_HI),
     (1, 7, 3, "mixture", KEY_HI), (1, 7, 3, "gaussian", KEY_HI),
-    (10, 37, 129, "gaussian", KEY_HI), (10, 64, 240, "gaussian", KEY),
+    (10, 37, 129, "gaussian", KEY_HI), (10, 256, 192, "gaussian", KEY),
+    (10, 256, 220, "gaussian", KEY_HI), (10, 64, 240, "gaussian", KEY),
     (4, 256, 300, "gaussian", KEY_HI)])
 def test_b1_kernel_rng_matches_plain(cuda, G, n, d, kind, key, route):
     """Kernel-RNG B1 at config 3's shape, the ragged ones of phase 2e and
-    the Gaussian past the shared route, on the route it chooses and on
-    each route forced that takes the shape, against its plain version on
-    the same Philox words (B1's tolerances), under run keys below and
-    above 2⁶³."""
+    the Gaussian about and past the end of the shared route, on the route
+    it chooses and on each route forced, against its plain version on the
+    same Philox words (B1's tolerances), under run keys below and above
+    2⁶³; a forced route that does not take the shape is refused."""
     lp = _b1_target(kind, d)
     x0, rows, _, _, _, scal = _b1_operands(G, n, d, seed=G + n + d,
                                            device=cuda)
     if b1.plan(n, d, G, 3, *_b1_kind(lp), route) is None:
-        return                     # refused: test_b1_kernel_matches_plain
+        with pytest.raises(ValueError, match="does not take"):
+            fused_chunk(x0, lp(x0), rows, None, None, None, scal, lp,
+                        d_true=d, rng="kernel", run_key=key, t0=500,
+                        route=route, **KW)
+        return
     out, ref, ref_la = _b1_kernel_rng_both(lp, x0, rows, scal, d, key=key,
                                            route=route)
     _b1_hold(out, ref, ref_la, scal)
@@ -712,7 +724,8 @@ def test_b1_kernel_rng_rejects_a_nonfinite_proposal(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rng", ["stream", "kernel"])
 @pytest.mark.parametrize("G,n,d,kind,pad", [
-    s for s in B1_SHAPES if s[2] < 230] + [(3, 9, 100, "nonfinite", 11)])
+    s for s in B1_SHAPES if _b1_shared_takes(*s[:4])] + [
+        (3, 9, 100, "nonfinite", 11)])
 def test_b1_routes_agree_bit_for_bit(cuda, G, n, d, kind, pad, rng):
     """Both routes run one per-generation code: where both take a shape
     their outputs are equal bit for bit, in both modes, a non-finite
@@ -747,19 +760,19 @@ def test_b1_plan_matches_the_launch(cuda):
     import ctypes
     fn = _build.library("fused_chunk_plan")
     for n in (1, 7, 37, 256, 1024, 4096):
-        for d in (1, 3, 100, 129, 230, 238, 240, 300, 1000, 4096):
+        for d in (1, 3, 100, 129, 192, 193, 230, 238, 240, 300, 1000,
+                  4096):
             for G in (1, 10, 64):
                 for kind, n_modes in ((0, 0), (1, 4), (1, 16), (1, 17)):
                     for route in (None, *b1.ROUTES):
-                        out = (ctypes.c_int * 7)()
+                        out = (ctypes.c_int * 5)()
                         err = fn(n, d, G, 3, kind, n_modes,
                                  -1 if route is None else
                                  b1.ROUTES.index(route),
                                  ctypes.addressof(out))
                         want = b1.plan(n, d, G, 3, kind, n_modes, route)
                         got = None if err else (b1.ROUTES[out[0]],
-                                                *out[1:4],
-                                                b1.STAGING[out[4]], out[5])
+                                                *out[1:4])
                         assert got == want, (n, d, G, kind, n_modes, route)
 
 

@@ -227,8 +227,8 @@ def _c_plans(queries, tmp_path):
         " q[6], q[7], &p))\n"
         '      std::puts("None");\n'
         "    else\n"
-        '      std::printf("%d %d %d %zu %d %d\\n", p.route, p.cpb,'
-        " p.threads, p.smem, p.stage, p.gens);\n  }\n}\n")
+        '      std::printf("%d %d %d %zu\\n", p.route, p.cpb,'
+        " p.threads, p.smem);\n  }\n}\n")
     exe = tmp_path / "plan"
     subprocess.run([cxx, "-std=c++17", "-O1", f"-I{CSRC}", str(src), "-o",
                     str(exe)], check=True, capture_output=True, timeout=120)
@@ -241,9 +241,8 @@ def _c_plans(queries, tmp_path):
         if line == "None":
             plans.append(None)
             continue
-        route, cpb, threads, smem, stage, gens = map(int, line.split())
-        plans.append((b1.ROUTES[route], cpb, threads, smem,
-                      b1.STAGING[stage], gens))
+        route, cpb, threads, smem = map(int, line.split())
+        plans.append((b1.ROUTES[route], cpb, threads, smem))
     return plans
 
 
@@ -270,31 +269,35 @@ def test_plan_matches_the_c_plan(tmp_path):
             for n, d, G, p, kind, m, f in queries]
     assert _c_plans(queries, tmp_path) == want
     assert sum(p is None for p in want) > 0
-    assert {p[4] for p in want if p} == set(b1.STAGING)
+    assert {p[0] for p in want if p} == set(b1.ROUTES)
 
 
-@pytest.mark.parametrize("n,d,G,kind,modes,route,cpb,staging", [
-    (256, 100, 10, 1, 4, "shared", 2, "whole"),     # config 3
-    (7, 3, 1, 1, 4, "shared", 1, "whole"),
-    (7, 3, 1, 0, 0, "shared", 1, "whole"),
-    (37, 129, 10, 0, 0, "shared", 1, "whole"),
-    (256, 230, 10, 0, 0, "shared", 1, "batch"),
-    (256, 238, 10, 0, 0, "global", 2, "none"),
-    (256, 239, 10, 0, 0, "global", 2, "none"),
-    (256, 240, 10, 0, 0, "global", 2, "none"),
-    (256, 300, 10, 0, 0, "global", 2, "none"),
-    (256, 1000, 10, 0, 0, "global", 2, "none"),
-    (256, 4096, 10, 1, 16, "global", 2, "none"),
-    (1024, 100, 10, 1, 4, "shared", 5, "whole"),
+@pytest.mark.parametrize("n,d,G,kind,modes,route,cpb", [
+    (256, 100, 10, 1, 4, "shared", 2),     # config 3
+    (7, 3, 1, 1, 4, "shared", 1),
+    (7, 3, 1, 0, 0, "shared", 1),
+    (37, 129, 10, 0, 0, "shared", 1),
+    (256, 192, 10, 0, 0, "shared", 1),     # the shared route's last d
+    (256, 193, 10, 0, 0, "global", 2),
+    (256, 230, 10, 0, 0, "global", 2),
+    (256, 238, 10, 0, 0, "global", 2),
+    (256, 239, 10, 0, 0, "global", 2),
+    (256, 240, 10, 0, 0, "global", 2),
+    (256, 300, 10, 0, 0, "global", 2),
+    (256, 1000, 10, 0, 0, "global", 2),
+    (256, 4096, 10, 1, 16, "global", 2),
+    (256, 100, 64, 1, 4, "global", 2),     # 64 generations do not fit
+    (1024, 100, 10, 1, 4, "shared", 5),
 ])
-def test_plan_routes(n, d, G, kind, modes, route, cpb, staging):
-    """The route each shape takes, its chains a block and its staging:
-    config 3 in 128 blocks with all ten generations staged; every target
-    the plain version takes has a route (the global one past the shared
+def test_plan_routes(n, d, G, kind, modes, route, cpb):
+    """The route each shape takes and its chains a block: config 3 in 128
+    blocks with all ten generations staged; the shared route only where
+    every generation's inputs fit beside the constants; every target the
+    plain version takes has a route (the global one past the shared
     memory); the shared route forced where it does not fit is refused,
     the global route forced takes every shape."""
     p = b1.plan(n, d, G, 3, kind, modes)
-    assert (p[0], p[1], p[4]) == (route, cpb, staging)
+    assert (p[0], p[1]) == (route, cpb)
     assert p[2] % 32 == 0 and p[3] <= b1.MAX_SHARED_BYTES
     if (n, d) == (256, 100):
         assert -(-n // p[1]) == 128
