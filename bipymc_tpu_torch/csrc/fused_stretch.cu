@@ -23,7 +23,10 @@
 // MB: ~1.3 MB, 0.0004 ms at 3.35 TB/s; the ~600 flops a walker-generation
 // take 0.00015 ms at 67 TFLOP/s. In practice the 2G dependent
 // half-updates bound it: each waits for the one before, so the design
-// shortens one half-update's dependent chain.
+// shortens one half-update's dependent chain. For the Gaussian at large d
+// the d^2 multiply-adds a walker-generation bound it, on the one SM that
+// carries the population: at n = 256, G = 64, d = 240 they are 0.94 G,
+// ~3.7 ms at that SM's 128 a cycle and 1.98 GHz.
 //
 // The design. The dependence runs through the whole population, so one
 // block carries it and __syncthreads separates the half-updates (a grid of
@@ -52,24 +55,42 @@
 // - Generation g + 1's (j, z, log u) are copied into the second of two
 //   shared buffers with cp.async while generation g runs, so no load of
 //   them sits on the dependent chain; 16 bytes a copy where n % 4 == 0.
-// - Shared route: where the population fits shared memory, x [n, ld] and
-//   logp [n] live there for the whole launch, and a half-update updates
-//   its active rows in place (safe: an active walker reads only its own
-//   row and rows of the other half). x_hist, logp_hist and accepted are
-//   written and never read back, 16 bytes a lane where d % 4 == 0. The row
-//   stride ld is d rounded up to an odd multiple of L, so the 32 / L
-//   walkers a warp serves start in different bank groups.
-// - Global route: where it does not (at the API's cap, 1,024 walkers in
-//   d = 100 take 400 KB of the 227 KB a block may use), every generation
-//   writes each row of x_hist and logp_hist exactly once and the next
-//   half-update reads them back from there through L1 and L2 (the
-//   kernel's first design): __syncthreads makes a block's global writes
-//   visible to the block. Where the groups' residuals do not all fit
-//   beside the constants, fewer groups run, each taking walkers in turn.
-// Both routes run the same per-walker code with the same L, so where both
-// can run their outputs are equal bit for bit. fused_stretch_plan is the
-// one place that chooses the route and sizes the shared memory; the
-// Python mirror (ops/fused_stretch.py::plan) is held to it on the card.
+// - The population, two routes. Shared route: where the population fits
+//   shared memory, x [n, ld] and logp [n] live there for the whole launch,
+//   and a half-update updates its active rows in place (safe: an active
+//   walker reads only its own row and rows of the other half). x_hist,
+//   logp_hist and accepted are written and never read back, 16 bytes a
+//   lane where d % 4 == 0. The row stride ld is d rounded up to an odd
+//   multiple of L, so the 32 / L walkers a warp serves start in different
+//   bank groups. Global route: where it does not (at the API's cap, 1,024
+//   walkers in d = 100 take 400 KB of the 227 KB a block may use), every
+//   generation writes each row of x_hist and logp_hist exactly once and
+//   the next half-update reads them back from there through L1 and L2
+//   (the kernel's first design): __syncthreads makes a block's global
+//   writes visible to the block. Where the groups' residuals do not all
+//   fit, fewer groups run, each taking walkers in turn.
+// - The constants, two places. In shared memory (as above) where they fit
+//   beside the words' buffers and one group's residual: every shape the
+//   kernel took before this choice. Else in device memory (the Gaussian
+//   from d = 237 at 256 walkers, the 16-mode mixture from d ~ 3,250): the
+//   mean and the mixture's means read from there through L1, and the
+//   Gaussian's inverse streamed by the block's threads through a ring of
+//   two shared slots with cp.async (Ring), a tile of 64 rows x 4L
+//   columns at a time, stored transposed as the shared constants are.
+//   The block already waits at each half-update's barrier and every group
+//   evaluates the same inverse, so the block's groups share each tile:
+//   one __syncthreads a tile, after which the next tile's copies fly while
+//   the groups read this one (eval_ring). A lane owns the columns eval_group
+//   gives it (i = gl, gl + L, ...) and sums each s_i over j ascending, one
+//   fmaf a term, so its q is eval_group's; the Gaussian takes any d whose
+//   groups' residuals r [ldc] fit (one group at d ~ 40,000), the mixture
+//   any d.
+// Every route runs the same per-walker code with the same L, so where two
+// can run their outputs are equal bit for bit. fused_stretch_plan
+// (fused_stretch_plan.cuh) is the one place that chooses the population's
+// route and the constants' place and sizes the shared memory; the Python
+// mirror (ops/fused_stretch.py::plan) is held to it on the CPU and on the
+// card.
 //
 // On the H100 (chip_smoke.py phase 2f; PERF.md's kernel table): 0.131 ms a
 // launch at the stretch workload, 1.0 us a half-update, against 0.47 for
@@ -85,74 +106,20 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "fused_stretch_plan.cuh"
 #include "target.cuh"
 
 namespace {
 
 using bipymc::min0;
+using namespace b9plan;   // the routes, the plan and its constants
 
-constexpr int kThreads = 1024;
-constexpr int kShared = 0, kGlobal = 1;   // routes
-// The register instance: the Gaussian at d <= kRegD, kRegL lanes a walker,
-// each holding kRegD / kRegL columns of inv (64 floats) in registers
-constexpr int kRegD = 16, kRegL = 4, kRegE = kRegD / kRegL;
-constexpr int kRegThreads = 512;
-
-struct Plan {
-  int route, reg, L, threads, groups, ld, ldc;
-  // 16-byte accesses: the shared route's write-back (d and ld multiples
-  // of 4, x_hist aligned) and the words' copies (n a multiple of 4, the
-  // operands aligned); set by the launch, which sees the pointers
-  bool vec_x, vec_words;
-  size_t smem;                 // bytes
-  // float offsets into shared memory
-  size_t off_r, off_buf, off_x;
-  int n_const;                 // floats of the target's constants (padded)
-};
-
-int round_up(int v, int to) { return (v + to - 1) / to * to; }
-
-// Returns false where even the global route does not fit max_smem bytes.
-// force: -1 the route that fits (shared first), else kShared or kGlobal.
-bool fused_stretch_plan(int n, int d, int kind, int n_modes, int max_smem,
-                        int force, Plan* p) {
-  const int half = n / 2;
-  p->reg = kind == 0 && d <= kRegD && kRegL * half <= kRegThreads;
-  int L = 1;
-  while (L < d && L < 32) L *= 2;
-  while (L > 1 && L * half > kThreads) L /= 2;
-  if (p->reg) L = kRegL;
-  p->L = L;
-  int ldc = round_up(d < kRegD ? kRegD : d, 4);   // >= kRegD: see eval_reg
-  if (ldc % 8 == 0) ldc += 4;
-  p->ldc = ldc;
-  p->ld = round_up(d, L);
-  if (p->ld / L % 2 == 0) p->ld += L;            // an odd multiple of L
-  p->n_const = round_up(kind == 0 ? d * ldc + ldc : n_modes * d, 4);
-  const size_t r_per_group = kind == 0 ? static_cast<size_t>(ldc) : 0;
-  const size_t fixed = static_cast<size_t>(p->n_const) + 6 * round_up(n, 4);
-  const size_t state = static_cast<size_t>(n) * p->ld + round_up(n, 4);
-  const size_t cap = static_cast<size_t>(max_smem) / sizeof(float);
-  if (fixed + r_per_group > cap) return false;   // not even one group
-  int groups = half < kThreads / L ? half : kThreads / L;
-  const bool shared_fits = fixed + groups * r_per_group + state <= cap;
-  if (force == kShared && !shared_fits) return false;
-  p->route = (force == kGlobal || !shared_fits) ? kGlobal : kShared;
-  if (p->route == kGlobal && r_per_group) {
-    const size_t room = (cap - fixed) / r_per_group;
-    if (room < static_cast<size_t>(groups)) groups = static_cast<int>(room);
-  }
-  p->groups = groups;
-  p->threads = round_up(groups * L, 32);
-  p->off_r = static_cast<size_t>(p->n_const);
-  p->off_buf = p->off_r + round_up(static_cast<int>(groups * r_per_group), 4);
-  p->off_x = p->off_buf + 6 * round_up(n, 4);
-  p->smem = sizeof(float) *
-            (p->off_x + (p->route == kShared ? state : 0));
-  p->vec_x = p->route == kShared && d % 4 == 0 && p->ld % 4 == 0;
-  p->vec_words = n % 4 == 0;
-  return true;
-}
+// how a group evaluates its walker's target
+constexpr int kEvalGroup = 0;   // eval_group: constants in shared memory,
+                                // or the mixture's means in device memory
+constexpr int kEvalReg = 1;     // eval_reg (Plan::reg)
+constexpr int kEvalRing = 2;    // eval_ring: the Gaussian, inv streamed
+constexpr int kRegE = kRegD / kRegL;
 
 // The lanes of the aligned group of L lanes (L a power of two, at most 32)
 // that holds this thread.
@@ -190,12 +157,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Copy the target's constants into shared s_c. kind 0: c0 = mean [d],
-// c1 = inv [d, d]; s_c holds inv transposed, [d, ldc] (row i = column i of
-// inv), then the mean [ldc], zero past d. kind 1: c0 = means [n_modes, d]
-// row after row, c1 = log_w [n_modes] (global).
-// The caller syncs the block before use.
-__device__ bipymc::Target load_group_target(int kind, const float* c0,
+// The target's constants. In shared memory (cdev false), copied into s_c:
+// kind 0: c0 = mean [d], c1 = inv [d, d]; s_c holds inv transposed,
+// [d, ldc] (row i = column i of inv), then the mean [ldc], zero past d.
+// kind 1: c0 = means [n_modes, d] row after row, c1 = log_w [n_modes]
+// (global). In device memory (cdev): the operands themselves, inv as it
+// is (the ring reads it). The caller syncs the block before use.
+__device__ bipymc::Target load_group_target(int kind, bool cdev,
+                                            const float* c0,
                                             const float* c1, int n_modes,
                                             float f0, float f1, int d,
                                             int ldc, float* s_c) {
@@ -203,10 +172,16 @@ __device__ bipymc::Target load_group_target(int kind, const float* c0,
   const int nt = blockDim.x;
   bipymc::Target tg;
   tg.kind = kind;
-  tg.c = s_c;
   tg.k = n_modes;
   tg.f0 = f0;
   tg.f1 = f1;
+  if (cdev) {
+    tg.c = kind == 0 ? c1 : c0;
+    tg.mu = kind == 0 ? c0 : nullptr;
+    tg.log_w = kind == 0 ? nullptr : c1;
+    return tg;
+  }
+  tg.c = s_c;
   if (kind == 0) {
     for (int a = tid; a < d * ldc; a += nt) {
       const int i = a / ldc, j = a % ldc;
@@ -313,9 +288,122 @@ __device__ __forceinline__ float eval_reg(const bipymc::Target& tg, Y y_at,
   return -0.5f * ((q + tg.f0) + tg.f1);
 }
 
-// kReg: the Gaussian through eval_reg (Plan::reg), at most kRegThreads
-template <int kRoute, bool kReg>
-__global__ void __launch_bounds__(kReg ? kRegThreads : kThreads)
+// The Gaussian's inverse in device memory, streamed through kRingSlots
+// shared slots at buf. A tile is kRingTJ rows (j) x ti = kRingE L columns
+// (i) of inv, stored transposed, tile[ii * kRingLdt + jj] = inv[j0 + jj,
+// i0 + ii], zero past d. An evaluation reads the tiles column chunk after
+// column chunk, its row tiles in order, and the copies run on in that
+// order from one evaluation into the next (every evaluation reads the
+// same inverse). Every thread of the block takes every step, the same
+// count of them, whether its group has a walker or not.
+struct Ring {
+  float* buf;
+  const float* inv;        // [d, d], row-major
+  int d, ti, shift;        // ti = 1 << shift
+  int n_rj, n_tiles;       // row tiles a column chunk; tiles an evaluation
+  int next;                // the tile the next copy fetches
+  int use;                 // the slot the next tile read is in
+
+  __device__ void init(float* b, const float* c, int dd, int L) {
+    buf = b;
+    inv = c;
+    d = dd;
+    ti = kRingE * L;
+    shift = __ffs(ti) - 1;
+    n_rj = (d + kRingTJ - 1) / kRingTJ;
+    n_tiles = n_rj * ((d + ti - 1) / ti);
+    next = 0;
+    use = 0;
+    issue(0);
+  }
+
+  // copy tile `next` into slot s: the block's threads take its elements
+  // in turn, consecutive threads consecutive columns of a row of inv
+  __device__ void issue(int s) {
+    const int ci = next / n_rj, rj = next - ci * n_rj;
+    const int i0 = ci * ti, j0 = rj * kRingTJ;
+    float* dst = buf + static_cast<size_t>(s) * ti * kRingLdt;
+    for (int e = threadIdx.x; e < ti * kRingTJ; e += blockDim.x) {
+      const int jj = e >> shift, ii = e & (ti - 1);
+      const int i = i0 + ii, j = j0 + jj;
+      float* o = dst + ii * kRingLdt + jj;
+      if (i < d && j < d)
+        cp_async4(o, inv + static_cast<size_t>(j) * d + i);
+      else
+        *o = 0.f;
+    }
+    cp_async_commit();
+    next = next + 1 == n_tiles ? 0 : next + 1;
+  }
+
+  // the next tile: wait for this thread's copies of it, then the block
+  // (every copy landed, and every group done with the other slot), then
+  // start the copies of the tile after it into the other slot
+  __device__ const float* step() {
+    cp_async_wait_all();
+    __syncthreads();
+    issue(use ^ 1);
+    const float* t = buf + static_cast<size_t>(use) * ti * kRingLdt;
+    use ^= 1;
+    return t;
+  }
+};
+
+// The Gaussian's log density as eval_group computes it, bit for bit, with
+// inv read tile by tile from the ring: this lane's columns i = gl + L e
+// of each chunk, each s_i summed over j ascending (its row tiles in
+// order, four rows a read, one fmaf a term; the quad past d adds zeros,
+// as eval_group's padding does), q over i ascending, then the group's
+// butterfly. Every thread of the block calls it; a lane whose group has
+// no walker (active false) only takes the ring's steps.
+template <typename Y>
+__device__ __forceinline__ float eval_ring(const bipymc::Target& tg,
+                                           Ring& ring, Y y_at, float* r,
+                                           int d, int ldc, int L, int gl,
+                                           unsigned mask, bool active) {
+  if (active)
+    for (int j = gl; j < ldc; j += L)
+      r[j] = j < d ? __fsub_rn(y_at(j), tg.mu[j]) : 0.f;
+  float q = 0.f;
+  const int n_ci = ring.n_tiles / ring.n_rj;
+  for (int ci = 0; ci < n_ci; ++ci) {
+    float s[kRingE];
+#pragma unroll
+    for (int e = 0; e < kRingE; ++e) s[e] = 0.f;
+    for (int rj = 0; rj < ring.n_rj; ++rj) {
+      const float* tile = ring.step();
+      if (!active) continue;
+      const int j0 = rj * kRingTJ;
+      const int rows = d - j0 < kRingTJ ? d - j0 : kRingTJ;
+      const float4* r4 = reinterpret_cast<const float4*>(r + j0);
+      for (int u = 0; u < (rows + 3) / 4; ++u) {
+        const float4 rv = r4[u];
+#pragma unroll
+        for (int e = 0; e < kRingE; ++e) {
+          const float4 cv = *reinterpret_cast<const float4*>(
+              tile + (gl + L * e) * kRingLdt + 4 * u);
+          s[e] = fmaf(rv.x, cv.x, s[e]);
+          s[e] = fmaf(rv.y, cv.y, s[e]);
+          s[e] = fmaf(rv.z, cv.z, s[e]);
+          s[e] = fmaf(rv.w, cv.w, s[e]);
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < kRingE; ++e) {
+        const int i = ci * ring.ti + gl + L * e;
+        if (i < d) q = fmaf(s[e], r[i], q);
+      }
+    }
+  }
+  if (active) q = group_sum(q, L, mask);
+  return -0.5f * ((q + tg.f0) + tg.f1);
+}
+
+// kEval: how a group evaluates its walker (kEvalReg: at most kRegThreads)
+template <int kRoute, int kEval>
+__global__ void __launch_bounds__(kEval == kEvalReg ? kRegThreads : kThreads)
 fused_stretch_kernel(
     const float* x0, const float* logp0, const int* __restrict__ jidx,
     const float* __restrict__ z, const float* __restrict__ log_u, int G,
@@ -358,8 +446,10 @@ fused_stretch_kernel(
   };
 
   prefetch(0);
-  const bipymc::Target tg =
-      load_group_target(kind, c0, c1, n_modes, f0, f1, d, ldc, smem);
+  Ring ring;
+  if constexpr (kEval == kEvalRing) ring.init(smem, c1, d, L);
+  const bipymc::Target tg = load_group_target(
+      kind, p.consts == kConstDevice, c0, c1, n_modes, f0, f1, d, ldc, smem);
   if (kRoute == kShared) {
     for (int e = tid; e < n * d; e += nt) s_x[(e / d) * ld + e % d] = x0[e];
     for (int k = tid; k < n; k += nt) s_lp[k] = logp0[k];
@@ -368,7 +458,7 @@ fused_stretch_kernel(
   __syncthreads();
   const float dm1 = static_cast<float>(d - 1);
   float creg[kRegE][kRegD];
-  if (kReg) {
+  if constexpr (kEval == kEvalReg) {
 #pragma unroll
     for (int t = 0; t < kRegE; ++t) {
       const int i = gl + t * kRegL;
@@ -394,8 +484,22 @@ fused_stretch_kernel(
       // global route: phase 0's partners (rows >= half) have not moved
       // this generation; phase 1's (rows < half) were just written to xo
       const float* xpart = phase == 0 ? xp : xo;
-      for (int w = group; group < p.groups && w < half; w += p.groups) {
-        const int i = lo + w;
+      // rounds of p.groups walkers. The ring needs every thread at every
+      // step, so there every thread takes every round (a thread past
+      // p.groups from the last group's first walker), a group with no
+      // walker (active false) only taking the ring's steps; elsewhere a
+      // group takes its walkers alone.
+      const int w_first =
+          kEval == kEvalRing && group >= p.groups ? p.groups - 1 : group;
+      const int w_end = kEval == kEvalRing
+                            ? (half + p.groups - 1) / p.groups * p.groups
+                            : half;
+      for (int w = w_first; (kEval == kEvalRing || group < p.groups) &&
+                            w < w_end;
+           w += p.groups) {
+        const bool active =
+            kEval != kEvalRing || (group < p.groups && w < half);
+        const int i = lo + (active ? w : 0);
         const int jj = sj[i];
         const float zz = sz[i];
         const float* xi = kRoute == kShared
@@ -407,9 +511,14 @@ fused_stretch_kernel(
         auto y_at = [&](int k) {
           return __fmaf_rn(zz, __fsub_rn(xi[k], xj[k]), xj[k]);
         };
-        const float lps =
-            kReg ? eval_reg(tg, y_at, s_r, creg, d, gl, mask)
-                 : eval_group(tg, y_at, s_r, d, ldc, L, gl, mask);
+        float lps;
+        if constexpr (kEval == kEvalRing)
+          lps = eval_ring(tg, ring, y_at, s_r, d, ldc, L, gl, mask, active);
+        else if constexpr (kEval == kEvalReg)
+          lps = eval_reg(tg, y_at, s_r, creg, d, gl, mask);
+        else
+          lps = eval_group(tg, y_at, s_r, d, ldc, L, gl, mask);
+        if (kEval == kEvalRing && !active) continue;
         const float lp = kRoute == kShared ? s_lp[i] : lpp[i];
         const float la =
             isfinite(lps)
@@ -449,10 +558,20 @@ fused_stretch_kernel(
         }
         __syncwarp(mask);      // the group's r is free again
       }
-      if (phase == 1) cp_async_wait_all();    // generation g + 1's words
+      // generation g + 1's words (and the ring's copy in flight)
+      if (phase == 1) cp_async_wait_all();
       __syncthreads();         // this half's rows are visible to the block
     }
   }
+}
+
+using KernelFn = decltype(&fused_stretch_kernel<kShared, kEvalGroup>);
+
+template <int kRoute>
+KernelFn pick(int eval) {
+  return eval == kEvalReg    ? fused_stretch_kernel<kRoute, kEvalReg>
+         : eval == kEvalRing ? fused_stretch_kernel<kRoute, kEvalRing>
+                             : fused_stretch_kernel<kRoute, kEvalGroup>;
 }
 
 }  // namespace
@@ -464,18 +583,21 @@ fused_stretch_kernel(
 // f1 = sigma^2. Outputs: x_hist [G, n, d], logp_hist [G, n], accepted
 // [G, n] bytes. route: -1 the shared route where the population fits,
 // else the global one; 0 or 1 forces the shared or the global route.
-// plan_out (int[4]): the route taken (0 shared, 1 global), L, the block's
-// threads and its shared bytes. Returns the launch's cudaError_t (0 on
-// success), or -1, launching nothing, where the route asked for does not
-// fit the shared memory a block may take.
+// consts: -1 the constants in shared memory where they fit, else in
+// device memory; 0 or 1 forces shared or device memory.
+// plan_out (int[5]): the route taken (0 shared, 1 global), the constants'
+// place (0 shared, 1 device), L, the block's threads and its shared
+// bytes. Returns the launch's cudaError_t (0 on success), or -1,
+// launching nothing, where the plan asked for does not fit the shared
+// memory a block may take (fused_stretch_plan).
 extern "C" int fused_stretch_launch(const void* x0, const void* logp0,
                                     const void* j, const void* z,
                                     const void* log_u, int G, int n, int d,
                                     int kind, const void* c0, const void* c1,
                                     int n_modes, float f0, float f1,
                                     void* x_hist, void* logp_hist,
-                                    void* accepted, int route, int* plan_out,
-                                    void* stream) {
+                                    void* accepted, int route, int consts,
+                                    int* plan_out, void* stream) {
   int device = 0, max_smem = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
@@ -483,23 +605,23 @@ extern "C" int fused_stretch_launch(const void* x0, const void* logp0,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   Plan p;
-  if (!fused_stretch_plan(n, d, kind, n_modes, max_smem, route, &p)) return -1;
+  if (!fused_stretch_plan(n, d, kind, n_modes, max_smem, route, consts, &p))
+    return -1;
   plan_out[0] = p.route;
-  plan_out[1] = p.L;
-  plan_out[2] = p.threads;
-  plan_out[3] = static_cast<int>(p.smem);
+  plan_out[1] = p.consts;
+  plan_out[2] = p.L;
+  plan_out[3] = p.threads;
+  plan_out[4] = static_cast<int>(p.smem);
   if (n == 0 || G == 0) return 0;
   auto aligned = [](const void* q) {
     return reinterpret_cast<std::uintptr_t>(q) % 16 == 0;
   };
   p.vec_x = p.vec_x && aligned(x_hist);
   p.vec_words = p.vec_words && aligned(j) && aligned(z) && aligned(log_u);
-  auto kernel =
-      p.route == kShared
-          ? (p.reg ? fused_stretch_kernel<kShared, true>
-                   : fused_stretch_kernel<kShared, false>)
-          : (p.reg ? fused_stretch_kernel<kGlobal, true>
-                   : fused_stretch_kernel<kGlobal, false>);
+  const int eval = p.reg ? kEvalReg
+                         : (p.consts == kConstDevice && kind == 0 ? kEvalRing
+                                                                  : kEvalGroup);
+  auto kernel = p.route == kShared ? pick<kShared>(eval) : pick<kGlobal>(eval);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(p.smem));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -75,19 +75,6 @@ def kernel_form(log_prob):
     return getattr(log_prob, "kernel_form", None)
 
 
-def kernel_shape(log_prob):
-    """``(kind, d, n_modes)`` of the target's kernel form, numbered as
-    :func:`kernel_operands` numbers it (0 the correlated Gaussian, with
-    n_modes 0; 1 the mixture), or None for a target with none."""
-    form = kernel_form(log_prob)
-    if form is None:
-        return None
-    if form.name == "correlated_gaussian":
-        return 0, form.arrays["mean"].shape[-1], 0
-    k, d = form.arrays["means"].shape
-    return 1, d, k
-
-
 def kernel_operands(log_prob, device, d: int, kernel: str):
     """``(kind, c0, c1, n_modes, f0, f1)``: the target's kernel form as
     ``csrc/target.cuh::load_target`` takes it, with the arrays float32 on

@@ -58,7 +58,7 @@ SIGNATURES = {
                      _I, _F, _F, _I, _P, _P, _P, _P, _P]),
     "fused_stretch": ("fused_stretch_launch",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F,
-                       _P, _P, _P, _I, _P, _P]),
+                       _P, _P, _P, _I, _I, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "chol": ("chol_launch", [_P, _P, _I, _I, _P]),

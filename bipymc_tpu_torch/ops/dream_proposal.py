@@ -5,8 +5,9 @@ is the plain PyTorch version and follows the Pallas path's math: the
 masked sum over δ DE pairs, the crossover mask with the FIRST minimum
 lane forced in, γ = 2.38·rsqrt(2δ·d_eff) (1 on jump generations), the
 snooker projection with its log Jacobian, and the 1e-30 clamps. The
-kernel is ``bipymc_tpu_torch/csrc/dream_proposal.cu`` (one block per
-chain); it matches the plain version up to float re-association.
+kernel is ``bipymc_tpu_torch/csrc/dream_proposal.cu`` (an aligned group
+of lanes a chain, its sums over d by shuffles within the group); it
+matches the plain version up to float re-association.
 
 :func:`dream_propose` has the signature and returns of
 ``dream_propose_pallas``. A tensor on the CPU goes to the plain version;

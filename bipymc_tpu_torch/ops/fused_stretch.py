@@ -22,11 +22,15 @@ plain version, which takes any batched target; a CUDA tensor goes to
 forms (``models/targets.py``, ``csrc/target.cuh``), or the call raises.
 ``fused_stretch.launches`` counts the kernel's launches.
 
-The kernel has two routes: the population in shared memory for the whole
-launch where it fits, else in ``x_hist`` itself (global memory). The
-entry point chooses; :func:`plan` mirrors its choice, for the CPU tests
-and for printing, and ``fused_stretch.last_plan`` is what the last launch
-chose.
+The kernel makes two choices: the population in shared memory for the
+whole launch where it fits, else in ``x_hist`` itself (global memory)
+(its route); the target's constants in shared memory where they fit,
+else read from device memory, the Gaussian's inverse streamed through a
+ring of tiles (so either target at any d, the Gaussian up to
+:func:`max_d`). One C function chooses both
+(``csrc/fused_stretch_plan.cuh``); :func:`plan` mirrors it, for the CPU
+tests and for printing, and ``fused_stretch.last_plan`` is what the last
+launch chose.
 """
 
 import ctypes
@@ -45,26 +49,61 @@ MAX_WALKERS = 1024
 # The H100's shared memory a block may opt in to, bytes (the entry point
 # reads the card's own figure)
 MAX_SHARED_BYTES = 232_448
-ROUTES = ("shared", "global")
+ROUTES = ("shared", "global")          # where the population lives
+CONSTS = ("shared", "device")          # where the target's constants are
+# csrc/fused_stretch_plan.cuh's constants (kThreads, kRegD, kRegL,
+# kRegThreads, kRingE, kRingTJ + 4 = kRingLdt, kRingSlots)
 _THREADS = 1024
+_REG_D, _REG_L, _REG_THREADS = 16, 4, 512
+_RING_E, _RING_LDT, _RING_SLOTS = 4, 68, 2
 
 
 def _round_up(v: int, to: int) -> int:
     return -(-v // to) * to
 
 
-def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None):
-    """The launch ``csrc/fused_stretch.cu::fused_stretch_plan`` makes for
-    n walkers in d dimensions on target ``kind`` (0 the correlated
-    Gaussian, 1 the mixture of ``n_modes``): ``(route, L, threads, shared
-    bytes)``, route ``"shared"`` (the population in shared memory) or
-    ``"global"`` (in ``x_hist``), L the lanes a walker; None where the
-    route asked for (``route=None``: the shared one where it fits, else
-    the global one) does not fit :data:`MAX_SHARED_BYTES`."""
+def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None,
+         consts=None):
+    """The launch ``csrc/fused_stretch_plan.cuh::fused_stretch_plan`` makes
+    for n walkers in d dimensions on target ``kind`` (0 the correlated
+    Gaussian, 1 the mixture of ``n_modes``): ``(route, consts, L, threads,
+    shared bytes)``. ``route``: ``"shared"`` (the population in shared
+    memory) or ``"global"`` (in ``x_hist``); ``consts``: ``"shared"`` (the
+    target's constants copied into shared memory) or ``"device"`` (read
+    from device memory, the Gaussian's inverse through a ring of tiles);
+    L the lanes a walker. Unforced (None), each is shared where it fits,
+    the constants first. None where a forced choice does not fit
+    :data:`MAX_SHARED_BYTES`, or where not even one walker's residual does
+    (the Gaussian past :func:`max_d`)."""
     half = n // 2
-    L, ld, fixed, r_per_group = _layout(n, d, kind, n_modes)
-    state = n * ld + _round_up(n, 4)
+    reg_shape = kind == 0 and d <= _REG_D and _REG_L * half <= _REG_THREADS
+    L = 1
+    while L < d and L < 32:
+        L *= 2
+    while L > 1 and L * half > _THREADS:
+        L //= 2
+    if reg_shape:
+        L = _REG_L
+    ldc = _round_up(max(d, _REG_D), 4)
+    if ldc % 8 == 0:
+        ldc += 4
+    ld = _round_up(d, L)
+    if ld // L % 2 == 0:
+        ld += L
     cap = MAX_SHARED_BYTES // 4
+    words = 6 * _round_up(n, 4)
+    state = n * ld + _round_up(n, 4)
+    r_per_group = ldc if kind == 0 else 0
+    n_const = _round_up(d * ldc + ldc if kind == 0 else n_modes * d, 4)
+    const_fits = n_const + words + r_per_group <= cap
+    if consts == "shared" and not const_fits:
+        return None
+    c_place = "device" if consts == "device" or not const_fits else "shared"
+    if c_place == "shared":
+        front = n_const
+    else:
+        front = _RING_SLOTS * _RING_E * L * _RING_LDT if kind == 0 else 0
+    fixed = front + words
     if fixed + r_per_group > cap:
         return None
     groups = min(half, _THREADS // L)
@@ -76,55 +115,24 @@ def plan(n: int, d: int, kind: int, n_modes: int = 0, route=None):
         groups = min(groups, (cap - fixed) // r_per_group)
     smem = 4 * (fixed + _round_up(groups * r_per_group, 4)
                 + (state if chosen == "shared" else 0))
-    return chosen, L, _round_up(groups * L, 32), smem
+    return chosen, c_place, L, _round_up(groups * L, 32), smem
 
 
-def _layout(n: int, d: int, kind: int, n_modes: int):
-    """``(L, ld, fixed, r_per_group)`` of ``fused_stretch_plan``: lanes a
-    walker, the shared row stride, the floats every route keeps (the
-    target's constants and the words' buffers) and a group's residual."""
-    half = n // 2
-    # the register instance: the Gaussian at d <= 16, 4 lanes a walker
-    reg = kind == 0 and d <= 16 and 4 * half <= _THREADS // 2
-    L = 1
-    while L < d and L < 32:
-        L *= 2
-    while L > 1 and L * half > _THREADS:
-        L //= 2
-    if reg:
-        L = 4
-    ldc = _round_up(max(d, 16), 4)
-    if ldc % 8 == 0:
-        ldc += 4
-    ld = _round_up(d, L)
-    if ld // L % 2 == 0:
-        ld += L
-    n_const = _round_up(d * ldc + ldc if kind == 0 else n_modes * d, 4)
-    r_per_group = ldc if kind == 0 else 0
-    return L, ld, n_const + 6 * _round_up(n, 4), r_per_group
-
-
-def check_target_fits(n: int, d: int, kind: int, n_modes: int = 0) -> None:
-    """Raise ``ValueError`` where B9 cannot hold the target for n walkers
-    (:func:`plan` finds no route), naming the bytes and the largest d it
-    takes; the wrapper's own check and ``EnsembleSampler(fused=True)`` on
-    a CUDA device both call it. The plain version takes any d."""
-    if plan(n, d, kind, n_modes) is not None:
-        return
-    _, _, fixed, r_per_group = _layout(n, d, kind, n_modes)
-    lo, hi = 0, d                  # plans at lo, not at hi
+def max_d(n: int, kind: int, n_modes: int = 0):
+    """The largest d for which :func:`plan` finds a launch for n walkers
+    on the correlated Gaussian (its walkers' residuals in shared memory:
+    40,316 at n = 64, the least over even n up to :data:`MAX_WALKERS`),
+    or None for the mixture, which B9 takes at any d."""
+    if kind == 1:
+        return None
+    lo, hi = 1, 1 << 20            # plans at lo, not at hi
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        if plan(n, mid, kind, n_modes) is not None:
-            lo = mid
-        else:
+        if plan(n, mid, kind, n_modes) is None:
             hi = mid
-    raise ValueError(
-        f"kernel B9 keeps the target's constants in shared memory: with "
-        f"{n} walkers at d={d} they and one walker's scratch take "
-        f"{4 * (fixed + r_per_group)} bytes, more than the "
-        f"{MAX_SHARED_BYTES} a block may use; it takes this target up to "
-        f"d={lo} (the plain version, on the CPU, takes any d)")
+        else:
+            lo = mid
+    return lo
 
 
 def check_walkers(n: int) -> None:
@@ -194,22 +202,27 @@ def fused_stretch_plain(x0, logp0, j, z, log_u, log_prob, half):
     return torch.stack(xs), torch.stack(lps), torch.stack(accs)
 
 
-def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None):
+def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None,
+                  consts=None):
     """Advance G stretch generations (2G half-updates) in one launch.
 
     x0 [n, d]; logp0 [n]; j [G, n] int32 partner rows (rows < half point
     into the upper half, rows >= half into the lower); z, log_u [G, n].
     Returns (x_hist [G, n, d], logp_hist [G, n], accepted [G, n] bool,
     either half-update accepted). On the card every float operand is
-    float32, ``log_prob`` must carry a kernel form, and its constants must
-    fit the kernel's shared memory (``ValueError`` otherwise).
-    ``route="shared"`` or ``"global"`` forces the kernel's route, for the
-    checks that hold the two routes together; a forced route that does
-    not fit raises ``ValueError``. The samplers never pass it.
+    float32 and ``log_prob`` must carry a kernel form; the correlated
+    Gaussian past :func:`max_d` raises ``ValueError``.
+    ``route="shared"`` or ``"global"`` forces where the population lives,
+    ``consts="shared"`` or ``"device"`` where the target's constants are
+    read, for the checks that hold the routes together; a forced choice
+    that does not fit raises ``ValueError``. The samplers pass neither.
     """
     if route not in (None, *ROUTES):
         raise ValueError(f"route={route!r}: expected None or one of "
                          f"{ROUTES}")
+    if consts not in (None, *CONSTS):
+        raise ValueError(f"consts={consts!r}: expected None or one of "
+                         f"{CONSTS}")
     if x0.device.type == "cpu":
         return fused_stretch_plain(x0, logp0, j, z, log_u, log_prob, half)
     _check_shapes(x0, logp0, j, z, log_u, half)
@@ -219,7 +232,6 @@ def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None):
         raise ValueError(f"fused_stretch: no kernel for device {x0.device}")
     kind, c0, c1, n_modes, f0, f1 = kernel_operands(
         log_prob, x0.device, d, "fused_stretch")
-    check_target_fits(n, d, kind, n_modes)
     for a in (x0, logp0, z, log_u, j, c0, c1):
         if a.device != x0.device:
             raise ValueError(f"an operand is on {a.device}, x0 on "
@@ -235,15 +247,23 @@ def fused_stretch(x0, logp0, j, z, log_u, log_prob, half, route=None):
     x_hist = torch.empty((G, n, d), dtype=torch.float32, device=dev)
     lp_hist = torch.empty((G, n), dtype=torch.float32, device=dev)
     acc_hist = torch.empty((G, n), dtype=torch.bool, device=dev)
-    chosen = (ctypes.c_int * 4)()
+    chosen = (ctypes.c_int * 5)()
     err = _build.library("fused_stretch")(
         x0.data_ptr(), logp0.data_ptr(), j.data_ptr(), z.data_ptr(),
         log_u.data_ptr(), G, n, d, kind, c0.data_ptr(), c1.data_ptr(),
         n_modes, f0, f1, x_hist.data_ptr(), lp_hist.data_ptr(),
         acc_hist.data_ptr(), -1 if route is None else ROUTES.index(route),
+        -1 if consts is None else CONSTS.index(consts),
         ctypes.addressof(chosen), torch.cuda.current_stream(dev).cuda_stream)
+    if err == _build.ERR_SHARED_MEMORY and route is None and consts is None:
+        raise ValueError(
+            f"fused_stretch: kernel B9 keeps each walker's residual, "
+            f"4·d bytes, in shared memory and takes the correlated "
+            f"Gaussian up to d={max_d(n, kind)} at n={n}; d={d} (the plain "
+            f"version, on the CPU, takes any d)")
     _build.check(err, "fused_stretch")
-    fused_stretch.last_plan = (ROUTES[chosen[0]], *chosen[1:])
+    fused_stretch.last_plan = (ROUTES[chosen[0]], CONSTS[chosen[1]],
+                               *chosen[2:])
     fused_stretch.launches += 1
     return x_hist, lp_hist, acc_hist
 

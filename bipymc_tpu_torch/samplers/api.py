@@ -27,9 +27,7 @@ import numpy as np
 import torch
 
 from bipymc_tpu_torch.core.rng import StepWords, seed_ints
-from bipymc_tpu_torch.models.targets import (KERNEL_TARGETS, kernel_form,
-                                             kernel_shape)
-from bipymc_tpu_torch.ops import fused_stretch
+from bipymc_tpu_torch.models.targets import KERNEL_TARGETS, kernel_form
 from bipymc_tpu_torch.ops.fused_stretch import check_walkers
 from bipymc_tpu_torch.parallel.pool import ChainPool
 from bipymc_tpu_torch.samplers import dream, rw, stretch
@@ -231,10 +229,6 @@ class EnsembleSampler(McmcSampler):
                     f"device code: {', '.join(KERNEL_TARGETS)} "
                     "(bipymc_tpu_torch.models.targets); run other targets "
                     "with fused=False")
-            if self.device.type == "cuda":
-                kind, d, n_modes = kernel_shape(log_like_fn)
-                fused_stretch.check_target_fits(self.n_chains, d, kind,
-                                                n_modes)
 
     @staticmethod
     def _collect(state, info):

@@ -11,7 +11,13 @@ non-zero:
 2. Each kernel against its plain PyTorch version on the card, at the
    main path's shapes and at edge shapes: B3 (``distinct_idx``) exactly
    equal, B2 (``dream_propose``) within x_star rtol 1e-5 / atol 1e-6 and
-   log_jac rtol 1e-5 / atol 1e-4. Each kernel and its plain version are
+   log_jac rtol 1e-5 / atol 1e-4, at config 3's [256, 100], config 5's
+   [1,024, 2] and d in {1, 3, 8, 31, 32, 33, 64, 65, 100, 129, 300}
+   (parallel, snooker and mixed chains, jump generations, tied u),
+   printing its worst error by d. B2 is timed at config 3 and at config
+   5 over the launches the profiler recorded, with the host's µs a call
+   of its wrapper taken apart (checks, allocations, the stream,
+   pointers, the ctypes launch). Each kernel and its plain version are
    timed two ways at the main path's shapes: device time per call (the
    sum of the kernels' own durations from ``torch.profiler`` over 200
    calls; ``ms`` and ``plain_ms`` in the kernels line) and time per call
@@ -130,16 +136,26 @@ non-zero:
    stretch path's own shape, [G, n, d] = [64, 256, 16] on its target
    with its start and its first chunk's words, and at (G, n, d) in {(64,
    32, 16), (7, 2, 1), (5, 18, 3) on the mixture, (8, 1024, 16) (the
-   API's cap), (4, 256, 100) and (4, 1024, 100) on config 3's mixture},
-   and with infinite stretch factors, whose proposals both versions must
-   reject. Accept bits equal, except a bit the plain version puts within
-   1e-4 of its threshold (then, as the walkers interact, every later
-   generation is left out); x and logp within ``B9_TOL``. Each case
-   prints the route it took: the main shape must take the shared route
-   and (4, 1024, 100) the global one. At the main shape the global route
-   forced must give the shared route's outputs bit for bit; the two
-   routes are timed in turns (shared, global, global, shared), and the
-   default route at the stretch path's shape.
+   API's cap), (4, 256, 100) and (4, 1024, 100) on config 3's mixture,
+   (4, 256, 240), (4, 256, 300) and (4, 1024, 240) on the correlated
+   Gaussian, (4, 256, 300) on the mixture}, and with infinite stretch
+   factors, whose proposals both versions must reject. Accept bits
+   equal, except a bit the plain version puts within 1e-4 of its
+   threshold (then, as the walkers interact, every later generation is
+   left out); x and logp within ``B9_TOL``. Each case prints its launch's
+   plan (the population's place, the constants' place, L, threads,
+   bytes): the main shape must keep both in shared memory, (4, 1024,
+   100) must take the global route, and the Gaussian at d = 240 and 300
+   must read its constants from device memory. At the main shape and at
+   (4, 256, 100) on the Gaussian every route and place forced (shared or
+   global population; constants in shared or device memory) must give
+   the chosen launch's outputs bit for bit; at the main shape the routes
+   are timed in turns (shared, global, global, shared), the constants'
+   places in turns (chosen, device, device, chosen), and the default
+   launch; then the Gaussian at n = 256, G = 64, d = 240 and 300 in turns
+   (240, 300, 300, 240) beside its bound, by CUDA events around each
+   launch. B9's other times are device ms a launch over the launches the
+   profiler recorded.
 3. The main path: BASELINE config 3 at full width through ``DreamZs``
    (256 chains, the 100-d four-mode mixture, archive 8192, burn-in 500),
    2,500 warm-up generations then a timed window of 5,000. Both kernels
@@ -422,26 +438,96 @@ def b2_operands(n, d, snooker, jump, ties, seed, dev):
     return x, rows, u_mask, u_e, eps, scal
 
 
+def b2_work(n, d, n_snk, k=6, n_pairs=3):
+    """(bytes, operations) of one B2 call: x, the k rows, the three draws
+    and scal read once, x_star and log_jac written once; per element 7
+    flops of sums, then 6 (snooker) or 3·n_pairs + 10 (parallel)."""
+    n_bytes = 4 * (n * d * (1 + k + 3 + 1) + n * 5 + n)
+    n_ops = n * d * 7 + n_snk * d * 6 + (n - n_snk) * d * (3 * n_pairs + 10)
+    return n_bytes, n_ops
+
+
+def b2_host_parts(ops, d, kw, reps=1000):
+    """Host µs a call of B2's wrapper and of its parts, by the host's clock
+    over ``reps`` calls each: the whole wrapper; its device checks
+    (``_check_cuda``); the two output allocations; the current stream;
+    the pointers and strides read from the tensors; the ctypes call of
+    the entry point, which launches the kernel; the rest (the shape
+    checks and the Python around them) the whole less the parts."""
+    from bipymc_tpu_torch.ops import _build
+    from bipymc_tpu_torch.ops import dream_proposal as b2
+
+    x, rows, um, ue, ep, scal = ops
+    n = x.shape[0]
+    fn = _build.library("dream_proposal")
+    x_star = torch.empty((n, d), device=x.device)
+    log_jac = torch.empty((n,), device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = lambda: (x.data_ptr(), x.stride(0), rows.data_ptr(), rows.shape[1],
+                    um.data_ptr(), um.stride(0), ue.data_ptr(), ue.stride(0),
+                    ep.data_ptr(), ep.stride(0), scal.data_ptr(), n, d,
+                    kw["n_pairs"], (d - 1) * 0.5, kw["b"], kw["b_star"],
+                    x_star.data_ptr(), log_jac.data_ptr())
+    fixed = args()
+    parts = {
+        "wrapper": lambda: b2.dream_propose(*ops, d_true=d, **kw),
+        "checks": lambda: b2._check_cuda(*ops),
+        "outputs": lambda: (torch.empty((n, d), device=x.device),
+                            torch.empty((n,), device=x.device)),
+        "stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "pointers": args,
+        "launch": lambda: fn(*fixed, stream),
+    }
+    us = {}
+    for key, f in parts.items():
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        us[key] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    us["rest"] = us["wrapper"] - sum(v for k, v in us.items()
+                                     if k != "wrapper")
+    return us
+
+
 def check_b2(dev):
     from bipymc_tpu_torch.ops.dream_proposal import (dream_propose,
                                                      propose_plain)
 
     kw = dict(n_pairs=3, b=1e-4, b_star=1e-6)
     main_err = None
-    cases = [(N_CHAINS, D, "mixed", False, False),
-             (N_CHAINS, D, "mixed", True, False),
-             (C5_CHAINS, 2, "mixed", False, False),     # config 5
-             (C5_CHAINS, 2, "mixed", True, False)]
-    for d in (1, 3, 8, 100, 129):
+    # config 3's shape, then config 5's (1,024 chains, d = 2)
+    cases = [(N_CHAINS, D, snooker, jump, False)
+             for snooker, jump in (("mixed", False), ("mixed", True))]
+    cases += [(C5_CHAINS, 2, snooker, jump, False)
+              for snooker in ("mixed", "all", "none")
+              for jump in (False, True)]
+    for d in (1, 3, 8, 31, 32, 33, 64, 65, 100, 129, 300, 500):
         for n in (5, 32):
             for snooker in ("all", "none", "mixed"):
                 for jump in (False, True):
                     for ties in (False, True):
                         cases.append((n, d, snooker, jump, ties))
+    # 1 and 2 DE pairs (3, the samplers' default, is the kernel's
+    # compile-time count; other counts take its run-time loop)
+    pairs = {len(cases) + k: n_pairs for k, n_pairs in enumerate((1, 2) * 3)}
+    cases += [(n, d, "mixed", False, False) for n, d in
+              ((C5_CHAINS, 2), (N_CHAINS, D), (5, 500)) for _ in (1, 2)]
+    worst = {}
     for i, (n, d, snooker, jump, ties) in enumerate(cases):
         ops = b2_operands(n, d, snooker, jump, ties, seed=i, dev=dev)
-        x_star, log_jac = dream_propose(*ops, d_true=d, **kw)
-        ref_x, ref_j = propose_plain(*ops, d_true=d, **kw)
+        # d = 500 (the kernel reads each quad twice past 384) as a padded
+        # problem, d_true = 100: the snooker log Jacobian is (d_true - 1)
+        # / 2 times a difference of logs of float32 sums, whose rounding
+        # reaches the atol at d_true = 500 in any summation order (1.19e-4
+        # in my chip call 4, PR 25)
+        kw_i = dict(kw, n_pairs=pairs.get(i, 3),
+                    d_true=100 if d == 500 else d)
+        x_star, log_jac = dream_propose(*ops, **kw_i)
+        ref_x, ref_j = propose_plain(*ops, **kw_i)
         torch.cuda.synchronize()
         ex = (x_star - ref_x).abs()
         ej = (log_jac - ref_j).abs()
@@ -450,29 +536,48 @@ def check_b2(dev):
                 and bool(torch.all(torch.isfinite(x_star)))):
             raise AssertionError(
                 f"B2 differs from its plain version at n={n} d={d} "
-                f"snooker={snooker} jump={jump} ties={ties}: max |dx| "
+                f"snooker={snooker} jump={jump} ties={ties} n_pairs="
+                f"{kw_i['n_pairs']}: max |dx| "
                 f"{float(ex.max()):.3g}, max |d log_jac| "
                 f"{float(ej.max()):.3g}")
+        err = max(float(ex.max()), float(ej.max()))
+        worst[f"d{d}"] = max(worst.get(f"d{d}", 0.0), err)
         if i < 2:
-            err = max(float(ex.max()), float(ej.max()))
             main_err = err if main_err is None else max(main_err, err)
     log(f"B2 dream_propose: within tolerance of the plain version in "
-        f"{len(cases)} cases; main-shape max abs error {main_err:.3g}")
+        f"{len(cases)} cases; main-shape max abs error {main_err:.3g}; "
+        f"max abs error by d (a warp or less a chain; up to d = 384 each "
+        f"input read once, past it twice):",
+        json.dumps(worst))
 
-    ops = b2_operands(N_CHAINS, D, "mixed", False, False, seed=99, dev=dev)
-    kernel = lambda: dream_propose(*ops, d_true=D, **kw)
-    plain = lambda: propose_plain(*ops, d_true=D, **kw)
-    times = (device_ms(kernel), device_ms(plain), call_ms(kernel),
-             call_ms(plain))
-    n, d, k = N_CHAINS, D, 6
-    n_bytes = 4 * (n * d * (1 + k + 3 + 1) + n * 5 + n)
-    n_snk = int(ops[5][:, 3].sum())
-    # pass 1: 7 flops a dim; pass 2: 6 (snooker) or 3·δ_max + 10 (parallel)
-    n_ops = n * d * 7 + n_snk * d * 6 + (n - n_snk) * d * (3 * 3 + 10)
-    return kernel_record(
+    def timed(n, d, seed):
+        ops = b2_operands(n, d, "mixed", False, False, seed=seed, dev=dev)
+        kernel = lambda: dream_propose(*ops, d_true=d, **kw)
+        plain = lambda: propose_plain(*ops, d_true=d, **kw)
+        t = timed_launches(kernel, 200, 20, key="dream_propose")
+        return ops, kernel, plain, t
+
+    ops, kernel, plain, t3 = timed(N_CHAINS, D, 99)
+    times = (t3[0], device_ms(plain), call_ms(kernel), call_ms(plain))
+    n_bytes, n_ops = b2_work(N_CHAINS, D, int(ops[5][:, 3].sum()))
+    host = b2_host_parts(ops, D, kw)
+    log("B2 at config 3, host µs a call of the wrapper and its parts:",
+        json.dumps(host))
+    ops5, kernel5, plain5, t5 = timed(C5_CHAINS, 2, 100)
+    b5, o5 = b2_work(C5_CHAINS, 2, int(ops5[5][:, 3].sum()))
+    config5 = {"ms": t5[0], "recorded": t5[1], "ms_over_reps": t5[2],
+               "events_ms": t5[3], "call_ms": call_ms(kernel5),
+               "plain_ms": device_ms(plain5), "bound_ms": bound_ms(b5, o5),
+               "bound_by": ("bytes" if b5 / HBM_BYTES_PER_S
+                            >= o5 / FP32_OPS_PER_S else "operations")}
+    log("B2 at config 5's [1024, 2]:", json.dumps(config5))
+    rec = kernel_record(
         "dream_propose", "bipymc_tpu_torch/csrc/dream_proposal.cu",
         "bipymc_tpu/ops/dream_proposal.py:123", main_err, times, n_bytes,
         n_ops)
+    rec.update(recorded=t3[1], ms_over_reps=t3[2], events_ms=t3[3],
+               host_us=host, config5=config5)
+    return rec
 
 
 def kernel_record(name, source, replaces, err, times, n_bytes, n_ops,
@@ -649,11 +754,12 @@ def b1_check_plan(shape, label):
 B1_WIDE_D = (240, 300)
 
 
-def b1_timed(fn, reps, warmup):
-    """B1 over ``reps`` launches after ``warmup``: its device ms a launch
-    over the launches the profiler recorded, that count, its device ms
-    over ``reps`` (as ``device_ms`` reads it), and ms a launch by CUDA
-    events around the same launches, back to back."""
+def timed_launches(fn, reps, warmup, key="fused_chunk"):
+    """The kernel whose name holds ``key`` (B1 by default) over ``reps``
+    launches after ``warmup``: its device ms a launch over the launches
+    the profiler recorded, that count, its device ms over ``reps`` (as
+    ``device_ms`` reads it), and ms a launch by CUDA events around the
+    same launches, back to back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -670,11 +776,11 @@ def b1_timed(fn, reps, warmup):
         e1.record()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "fused_chunk" in e.key]
+            if e.device_type == DeviceType.CUDA and key in e.key]
     us = sum(e.self_device_time_total for e in rows)
     n = sum(e.count for e in rows)
     if n == 0:
-        raise AssertionError("the profiler recorded no launch of B1")
+        raise AssertionError(f"the profiler recorded no launch of {key}")
     return us / n / 1e3, n, us / reps / 1e3, e0.elapsed_time(e1) / reps
 
 
@@ -690,12 +796,12 @@ def b1_wide_times(calls):
     order = list(calls) + list(calls)[::-1]
     turns = {d: [] for d in calls}
     for d in order * 2:
-        turns[d].append(b1_timed(calls[d][0], 200, 20))
+        turns[d].append(timed_launches(calls[d][0], 200, 20))
     wide = {}
     for d, (fn, n_bytes, n_ops) in calls.items():
         time.sleep(1.0)
         ms = sorted(t[0] for t in turns[d])
-        idle = b1_timed(fn, 20, 3)
+        idle = timed_launches(fn, 20, 3)
         wide[f"d{d}"] = {
             "ms": (ms[1] + ms[2]) / 2,
             "turns_ms": [t[0] for t in turns[d]],
@@ -788,13 +894,13 @@ def check_b1(dev):
                                             **kw))
     # the two routes in turns at config 3: shared, global, global, shared
     # (device ms a launch over the launches the profiler recorded)
-    timed = [b1_timed(forced(r), 200, 20) for r in ("shared", "global",
+    timed = [timed_launches(forced(r), 200, 20) for r in ("shared", "global",
                                                     "global", "shared")]
     turns = [t[0] for t in timed]
     log("B1 device ms at config 3 in turns (shared, global, global, "
         "shared), the launches recorded of 200:",
         json.dumps([turns, [t[1] for t in timed]]))
-    times = (b1_timed(kernel, 200, 20)[0],
+    times = (timed_launches(kernel, 200, 20)[0],
              device_ms(plain, reps=20, warmup=3), call_ms(kernel),
              call_ms(plain, reps=30, warmup=3))
     n_bytes, n_ops = b1_work(st.x, ops[0], ops[4], len(means))
@@ -948,7 +1054,7 @@ def check_b1_kernel_rng(dev):
     stream_fn = lambda: fused_chunk(st.x, lp0, *s_ops, lp, **kw)
     # the two modes in turns on the same chunk: stream, kernel, kernel,
     # stream (device ms a launch over the launches the profiler recorded)
-    timed = [b1_timed(f, 200, 20) for f in (stream_fn, kernel, kernel,
+    timed = [timed_launches(f, 200, 20) for f in (stream_fn, kernel, kernel,
                                             stream_fn)]
     turns = [t[0] for t in timed]
     log("B1 device ms in turns (stream, kernel RNG, kernel RNG, stream), "
@@ -1008,15 +1114,23 @@ def b9_compare(lp, x0, j, z, log_u, label):
     """B9 against its plain version on one operand set; returns the
     excused bits, max |dx| and max |dlogp| over the comparable entries,
     the kernel's outputs and the route it took."""
+    from bipymc_tpu_torch.models.targets import kernel_form
     from bipymc_tpu_torch.ops.fused_stretch import (fused_stretch,
-                                                    fused_stretch_plain)
+                                                    fused_stretch_plain, plan)
     from bipymc_tpu_torch.testing import (match_stretch_decisions,
                                           stretch_log_alpha)
 
     half = x0.shape[0] // 2
     lp0 = lp(x0)
     out = fused_stretch(x0, lp0, j, z, log_u, lp, half)
-    route = fused_stretch.last_plan[0]
+    route = fused_stretch.last_plan
+    form = kernel_form(lp)
+    kind, m = ((0, 0) if form.name == "correlated_gaussian"
+               else (1, form.arrays["means"].shape[0]))
+    want = plan(*x0.shape, kind, m)
+    if route != want:
+        raise AssertionError(f"B9 ({label}): the launch took {route}, "
+                             f"ops/fused_stretch.plan {want}")
     ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, half)
     ref_la = stretch_log_alpha(x0, lp0, j, z, log_u, lp)
     torch.cuda.synchronize()
@@ -1083,6 +1197,14 @@ def check_b9(dev):
              case("G=4 n=256 d=100 config-3 mixture", c3_lp, 4, 256, D, 5),
              case("G=4 n=1024 d=100 config-3 mixture", c3_lp, 4, 1024, D,
                   7),
+             case("G=4 n=256 d=240 gaussian", b4_target("gaussian", 240), 4,
+                  256, 240, 8),
+             case("G=4 n=256 d=300 gaussian", b4_target("gaussian", 300), 4,
+                  256, 300, 9),
+             case("G=4 n=1024 d=240 gaussian", b4_target("gaussian", 240), 4,
+                  1024, 240, 10),
+             case("G=4 n=256 d=300 mixture", b4_target("mixture", 300), 4,
+                  256, 300, 11),
              case("G=6 n=16 d=4 gaussian, non-finite",
                   b4_target("gaussian", 4), 6, 16, 4, 6)]
     # an infinite stretch factor makes x* infinite, so its target value is
@@ -1102,29 +1224,57 @@ def check_b9(dev):
                            "max_abs_dx": e_x, "max_abs_dlogp": e_l,
                            "acceptance": float(out[2].float().mean())}
     log(f"B9 fused_stretch: against the plain version, limits "
-        f"{json.dumps(B9_TOL)}:", json.dumps(readings))
-    routes = {r["route"] for r in readings.values()}
-    if routes != {"shared", "global"} or \
-            readings[cases[0][0]]["route"] != "shared":
+        f"{json.dumps(B9_TOL)} (route: the population's place, the "
+        "constants' place, L, threads, shared bytes):", json.dumps(readings))
+    places = {tuple(r["route"][:2]) for r in readings.values()}
+    wide = [r["route"][1] for k, r in readings.items() if "d=240" in k
+            or "d=300 gaussian" in k]
+    if places != {("shared", "shared"), ("global", "shared"),
+                  ("global", "device")} or \
+            tuple(readings[cases[0][0]]["route"][:2]) != ("shared", "shared") \
+            or wide != ["device"] * 3:
         raise AssertionError(f"B9's routes in phase 2f: {readings}")
 
-    # the global route forced at the main shape: the same outputs bit for
-    # bit (the same per-walker code, the same lanes a walker)
+    # every route and place forced where it takes the shape, at the main
+    # shape and at config 3's width on the Gaussian: the same outputs bit
+    # for bit (the same per-walker code, the same lanes a walker; the
+    # ring's tiles summed as eval_group sums the shared constants)
     lp0 = lp(x0)
-    run = lambda route=None: fused_stretch(x0, lp0, *main_ops, lp,
-                                           ST_N // 2, route=route)
-    shared_out, global_out = run(), run("global")
-    if fused_stretch.last_plan[0] != "global" or not all(
-            torch.equal(a, b) for a, b in zip(shared_out, global_out)):
-        raise AssertionError("B9's two routes differ at the main shape")
+    run = lambda route=None, consts=None: fused_stretch(
+        x0, lp0, *main_ops, lp, ST_N // 2, route=route, consts=consts)
+    g100 = b4_target("gaussian", D)
+    x100, *ops100 = b9_random_operands(4, 256, D, 12, dev)
+    lp100 = g100(x100)
+    for label, call in (("main", run),
+                        ("G=4 n=256 d=100 gaussian",
+                         lambda route=None, consts=None: fused_stretch(
+                             x100, lp100, *ops100, g100, 128, route=route,
+                             consts=consts))):
+        ref = call()
+        for route in ("shared", "global"):
+            for consts in ("shared", "device"):
+                out = call(route, consts)
+                if fused_stretch.last_plan[:2] != (route, consts) or not all(
+                        torch.equal(a, b) for a, b in zip(ref, out)):
+                    raise AssertionError(
+                        f"B9 {label}: route {route}, constants in {consts} "
+                        "memory differ from the chosen launch's outputs")
+    log("B9: every route and place forced gives the chosen launch's "
+        "outputs bit for bit at the main shape and at G=4 n=256 d=100")
     plain = lambda: fused_stretch_plain(x0, lp0, *main_ops, lp, ST_N // 2)
-    # the two routes in turns (shared, global, global, shared)
-    turns = [device_ms(lambda r=r: run(r)) for r in
+    # the routes in turns (shared, global, global, shared), then the
+    # constants from device memory in turns with the chosen launch
+    b9_ms = lambda f: timed_launches(f, 200, 20, key="fused_stretch")[0]
+    turns = [b9_ms(lambda r=r: run(r)) for r in
              (None, "global", "global", None)]
+    c_turns = [b9_ms(lambda c=c: run(consts=c)) for c in
+               (None, "device", "device", None)]
     log("B9 at the main shape, device ms in turns (shared, global, global, "
-        "shared):", json.dumps(turns))
-    times = (device_ms(run), device_ms(plain, reps=5, warmup=1),
-             call_ms(run), call_ms(plain, reps=10, warmup=2))
+        "shared):", json.dumps(turns), "; (chosen, constants in device "
+        "memory x 2, chosen):", json.dumps(c_turns))
+    times = (timed_launches(run, 200, 20, key="fused_stretch")[0],
+             device_ms(plain, reps=5, warmup=1), call_ms(run),
+             call_ms(plain, reps=10, warmup=2))
     n_bytes, n_ops = b9_work(ST_G, ST_N, ST_D, 0)
     rec = kernel_record(
         "fused_stretch", "bipymc_tpu_torch/csrc/fused_stretch.cu",
@@ -1133,7 +1283,61 @@ def check_b9(dev):
             readings[cases[0][0]]["max_abs_dlogp"]), times, n_bytes, n_ops)
     rec["routes_in_turns_ms"] = {"shared": [turns[0], turns[3]],
                                  "global": [turns[1], turns[2]]}
+    rec["consts_in_turns_ms"] = {"shared": [c_turns[0], c_turns[3]],
+                                 "device": [c_turns[1], c_turns[2]]}
+    rec["wide"] = b9_wide_times(dev)
     return rec
+
+
+def b9_wide_times(dev):
+    """B9 on the correlated Gaussian past its shared-memory constants, at
+    the stretch workload's n = 256 and G = 64, d = 240 and 300, in turns
+    (240, 300, 300, 240), each 10 launches after 2 of warm-up timed one
+    by one by CUDA events around the launch (synchronised after it; a
+    launch takes milliseconds, so the host's part is small): their
+    median, and the bound. (The profiler recorded none of 20 such
+    launches in a long process, my chip call 2, PR 25.)"""
+    from bipymc_tpu_torch.ops.fused_stretch import fused_stretch
+
+    calls = {}
+    for d in B1_WIDE_D:
+        lp = b4_target("gaussian", d)
+        x0, *ops = b9_random_operands(ST_G, ST_N, d, 20 + d, dev)
+        lp0 = lp(x0)
+        calls[d] = lambda x0=x0, lp0=lp0, ops=ops, lp=lp: fused_stretch(
+            x0, lp0, *ops, lp, ST_N // 2)
+
+    def each_ms(fn, reps=10, warmup=2):
+        for _ in range(warmup):
+            fn()
+        out = []
+        for _ in range(reps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            out.append(e0.elapsed_time(e1))
+        return float(np.median(out))
+
+    turns = {d: [] for d in calls}
+    for d in list(calls) + list(calls)[::-1]:
+        turns[d].append(each_ms(calls[d]))
+    wide = {}
+    for d in calls:
+        calls[d]()
+        n_bytes, n_ops = b9_work(ST_G, ST_N, d, 0)
+        wide[f"d{d}"] = {
+            "ms": float(np.median(turns[d])),
+            "turns_events_ms": turns[d],
+            "plan": list(fused_stretch.last_plan),
+            "bound_ms": bound_ms(n_bytes, n_ops),
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                         >= n_ops / FP32_OPS_PER_S else "operations")}
+    log("B9 on the Gaussian at n=256, G=64, constants in device memory:",
+        json.dumps(wide))
+    return wide
 
 
 # ---------------------------------------------------------------- phase 2g

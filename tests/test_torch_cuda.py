@@ -15,9 +15,9 @@ logp within rtol 1e-5 / atol 1e-6 (the kernel sums over d in another
 order), on the route it chooses and on every route forced that takes the
 shape, the launch's plan equal to ``ops/fused_rw_chunk.plan``'s and the
 routes' outputs equal bit for bit where two run; on the card
-``EnsembleSampler(fused=True)`` refuses at construction a 240-d Gaussian
-that B9 cannot hold, and ``DreamZs(fused=True)`` (both modes) and
-``Dram(fused=True)`` run it, through B1's and B4's global routes. B5 is
+``EnsembleSampler(fused=True)``, ``DreamZs(fused=True)`` (both modes) and
+``Dram(fused=True)`` run a 240-d Gaussian, through B9's constants in
+device memory and B1's and B4's global routes. B5 is
 held within atol 1e-3 of its plain version (tests/
 test_gp.py's bound for the reference's kernel), B6 within L atol
 5e-6·max|L| and z atol 1e-5·max|z| (tests/test_pallas_bchol.py's), with
@@ -44,8 +44,10 @@ its plain version's decisions, except a bit the plain version puts
 within 1e-4 of its threshold (after which, as the walkers interact, no
 later generation is compared), with x and logp within rtol 1e-5 / atol
 1e-6 (B4's bound), on the route it chooses and on the global route
-forced, the launch's own plan equal to ``ops/fused_stretch.plan``'s and
-the two routes' outputs equal where both can run;
+forced, its constants where it puts them and in device memory forced
+(the Gaussian at d = 240 and 300, the mixture at d = 300), the launch's
+own plan equal to ``ops/fused_stretch.plan``'s and the outputs of every
+route and place that takes a shape equal bit for bit;
 ``EnsembleSampler(fused=True)`` must launch it once a chunk and take the
 per-generation engine's decisions by the same rule.
 B11 must be bit-equal to its plain version (a copy is a copy), in every
@@ -171,14 +173,39 @@ def test_b3_kernel_matches_plain(cuda, n_chains, k, n, with_exclude):
     (256, 100, "mixed", False, False), (256, 100, "mixed", True, False),
     (5, 1, "all", False, False), (32, 3, "none", True, True),
     (5, 129, "mixed", False, True), (32, 8, "all", True, False),
-    (5, 300, "mixed", False, False)])
+    (5, 300, "mixed", False, False)] + [
+    (1024 if d == 2 else 37, d, snooker, jump, False)
+    for d in (2, 31, 32, 33, 64, 65, 300, 500)
+    for snooker, jump in (("mixed", False), ("all", False), ("mixed", True))])
 def test_b2_kernel_matches_plain(cuda, n, d, snooker, jump, ties):
+    """B2 against its plain version. d = 500 takes the kernel's path that
+    reads each quad twice (past 384); there the snooker log Jacobian,
+    (d_true − 1)/2 times a difference of logs of two float32 sums, would
+    carry float32 rounding of ~1e-4 in any summation order, so the case
+    is a padded problem with d_true = 100, and the atol keeps its
+    meaning."""
     ops = [a.to(cuda) for a in _b2_operands(n, d, snooker, jump, ties, d)]
+    d_true = 100 if d == 500 else d
     before = dream_propose.launches
-    x_star, log_jac = dream_propose(*ops, d_true=d, **KW)
+    x_star, log_jac = dream_propose(*ops, d_true=d_true, **KW)
     torch.cuda.synchronize()
     assert dream_propose.launches == before + 1
-    ref_x, ref_j = propose_plain(*ops, d_true=d, **KW)
+    ref_x, ref_j = propose_plain(*ops, d_true=d_true, **KW)
+    torch.testing.assert_close(x_star, ref_x, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(log_jac, ref_j, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [1, 2])
+@pytest.mark.parametrize("n,d", [(1024, 2), (37, 100), (5, 500)])
+def test_b2_kernel_matches_plain_at_other_pair_counts(cuda, n, d, n_pairs):
+    """B2 with 1 or 2 DE pairs (the kernel's loop over them at run time;
+    3, the samplers' default, is a compile-time count), mixed moves."""
+    ops = [a.to(cuda) for a in _b2_operands(n, d, "mixed", False, False,
+                                            d + n_pairs)]
+    kw = dict(KW, n_pairs=n_pairs, d_true=min(d, 100))   # as above
+    x_star, log_jac = dream_propose(*ops, **kw)
+    ref_x, ref_j = propose_plain(*ops, **kw)
     torch.testing.assert_close(x_star, ref_x, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(log_jac, ref_j, rtol=1e-5, atol=1e-4)
 
@@ -351,17 +378,23 @@ def test_b4_plan_matches_the_launch(cuda):
 
 
 @pytest.mark.cuda
-def test_fused_samplers_refuse_what_b1_and_b9_cannot_hold(cuda):
-    """On the card, ``EnsembleSampler(fused=True)`` refuses at
-    construction a 240-d Gaussian that B9 cannot hold in shared memory;
-    ``DreamZs(fused=True)`` takes it in both modes (B1's global route:
-    one launch a fused chunk, finite chains) and so does ``Dram(fused=
-    True)`` (B4's global route)."""
+def test_fused_samplers_run_a_240d_gaussian(cuda):
+    """On the card every fused sampler runs a 240-d Gaussian:
+    ``EnsembleSampler(fused=True)`` through B9 with its constants read
+    from device memory (one launch a 64-generation chunk, finite chains,
+    acceptance in (0, 1)), ``DreamZs(fused=True)`` in both modes (B1's
+    global route: one launch a fused chunk, finite chains) and
+    ``Dram(fused=True)`` (B4's global route)."""
     d = 240
     lp = _b4_target("gaussian", d)
-    with pytest.raises(ValueError, match="up to d=236"):
-        bt.EnsembleSampler(lp, n_chains=32, fused=True, device=cuda)
     x0 = np.random.default_rng(0).standard_normal((32, d))
+    s = bt.EnsembleSampler(lp, n_chains=32, seed=0, fused=True, device=cuda)
+    before = fused_stretch.launches
+    s.run_mcmc(128, 0.1 * x0)
+    assert fused_stretch.launches - before == 2
+    assert fused_stretch.last_plan[:2] == ("shared", "device")
+    h = s._history
+    assert np.all(np.isfinite(h["x"])) and 0 < h["accepted"].mean() < 1
     for rng in ("stream", "kernel"):
         s = bt.DreamZs(lp, n_chains=32, seed=0, burnin_gens=20,
                        archive_capacity=1024, fused=True, fused_rng=rng,
@@ -1177,13 +1210,13 @@ def _stretch_target(kind, d):
     return bt.gaussian_mixture(2.0 * rng.standard_normal((4, d)))
 
 
-def _b9_hold(lp, x0, j, z, log_u, route=None):
+def _b9_hold(lp, x0, j, z, log_u, route=None, consts=None):
     """B9 against its plain version on one operand set; returns the
     kernel's outputs."""
     lp0 = lp(x0)
     before = fused_stretch.launches
     out = fused_stretch(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2,
-                        route=route)
+                        route=route, consts=consts)
     torch.cuda.synchronize()
     assert fused_stretch.launches == before + 1
     ref = fused_stretch_plain(x0, lp0, j, z, log_u, lp, x0.shape[0] // 2)
@@ -1210,6 +1243,7 @@ def _b9_operands(G, n, d, kind, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("consts", [None, "device"])
 @pytest.mark.parametrize("route", [None, "global"])
 @pytest.mark.parametrize("G,n,d,kind", [(64, 256, 16, "gaussian"),
                                         (5, 18, 3, "mixture"),
@@ -1217,17 +1251,27 @@ def _b9_operands(G, n, d, kind, dev):
                                         (8, 1024, 16, "gaussian"),
                                         (4, 256, 100, "gaussian"),
                                         (4, 1024, 100, "mixture"),
-                                        (4, 1024, 100, "gaussian")])
-def test_b9_kernel_matches_plain(cuda, G, n, d, kind, route):
-    """B9 on the route it chooses and on the global route forced, against
-    its plain version; the launch's own plan equal to ``plan``'s."""
+                                        (4, 1024, 100, "gaussian"),
+                                        (4, 256, 240, "gaussian"),
+                                        (4, 256, 300, "gaussian"),
+                                        (4, 1024, 240, "gaussian"),
+                                        (4, 256, 300, "mixture")])
+def test_b9_kernel_matches_plain(cuda, G, n, d, kind, route, consts):
+    """B9 on the route it chooses and on the global route forced, its
+    constants where it puts them and in device memory forced, against its
+    plain version; the launch's own plan equal to ``plan``'s. The
+    Gaussian past d = 236 reads its constants from device memory."""
     lp, x0, j, z, log_u = _b9_operands(G, n, d, kind, cuda)
-    out = _b9_hold(lp, x0, j, z, log_u, route)
+    out = _b9_hold(lp, x0, j, z, log_u, route, consts)
     mixture = kind == "mixture"
     assert fused_stretch.last_plan == plan(n, d, int(mixture),
-                                           4 if mixture else 0, route=route)
+                                           4 if mixture else 0, route=route,
+                                           consts=consts)
     assert fused_stretch.last_plan[0] == (
         "global" if route == "global" or n * d > 256 * 100 else "shared")
+    assert fused_stretch.last_plan[1] == (
+        "device" if consts == "device" or (not mixture and d >= 240)
+        else "shared")
     if kind == "nonfinite":
         assert not bool(out[2][1, 0]) and not bool(out[2][3, n - 1])
     assert 0 < float(out[2].float().mean()) < 1
@@ -1238,20 +1282,30 @@ def test_b9_kernel_matches_plain(cuda, G, n, d, kind, route):
                                         (5, 18, 3, "mixture"),
                                         (8, 1024, 16, "gaussian"),
                                         (4, 256, 100, "mixture"),
-                                        (4, 256, 100, "gaussian")])
+                                        (4, 256, 100, "gaussian"),
+                                        (4, 32, 240, "gaussian")])
 def test_b9_routes_agree_bit_for_bit(cuda, G, n, d, kind):
     """Where the population fits shared memory, both routes run the same
-    per-walker code with the same lanes a walker: equal outputs."""
+    per-walker code with the same lanes a walker, and the constants read
+    from device memory (the ring's tiles) give eval_group's sums term by
+    term: every route and place that takes the shape, forced, gives the
+    same outputs bit for bit."""
     lp, x0, j, z, log_u = _b9_operands(G, n, d, kind, cuda)
     lp0 = lp(x0)
+    m = 4 if kind == "mixture" else 0
     outs = []
     for route in ("shared", "global"):
-        outs.append(fused_stretch(x0, lp0, j, z, log_u, lp, n // 2,
-                                  route=route))
-        assert fused_stretch.last_plan[0] == route
+        for consts in ("shared", "device"):
+            if plan(n, d, int(m > 0), m, route, consts) is None:
+                continue
+            outs.append(fused_stretch(x0, lp0, j, z, log_u, lp, n // 2,
+                                      route=route, consts=consts))
+            assert fused_stretch.last_plan[:2] == (route, consts)
     torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    assert len(outs) == (2 if d >= 240 else 4)
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1261,6 +1315,8 @@ def test_b9_forced_shared_route_that_does_not_fit_raises(cuda):
         fused_stretch(x0, lp(x0), j, z, log_u, lp, 512, route="shared")
     with pytest.raises(ValueError, match="route"):
         fused_stretch(x0, lp(x0), j, z, log_u, lp, 512, route="l2")
+    with pytest.raises(ValueError, match="consts"):
+        fused_stretch(x0, lp(x0), j, z, log_u, lp, 512, consts="l2")
 
 
 @pytest.mark.cuda
@@ -1279,12 +1335,12 @@ def test_b9_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                       lambda x: -0.5 * (x * x).sum(-1), 4)
     with pytest.raises(ValueError, match="int32"):
         fused_stretch(x0, lp(x0), j.long(), z, log_u, lp, 4)
-    # d = 240: the Gaussian's 57,840 constants alone fill shared memory,
-    # which the entry point refuses before launching
+    # the constants forced into shared memory where they do not fit (the
+    # Gaussian at d = 240: 57,840 floats), refused before any launch
     big = _stretch_target("gaussian", 240)
     xb = torch.randn((8, 240), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        fused_stretch(xb, big(xb), j, z, log_u, big, 4)
+        fused_stretch(xb, big(xb), j, z, log_u, big, 4, consts="shared")
 
 
 @pytest.mark.cuda

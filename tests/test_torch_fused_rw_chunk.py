@@ -275,39 +275,55 @@ def test_b1_limit_is_the_wrappers_check(rng, limit):
             fused_chunk.fused_chunk(*ops, lp, d_true=d, **kw)
 
 
+def _b9_meta(G, n, d):
+    meta = dict(device="meta", dtype=torch.float32)
+    return (torch.empty((n, d), **meta), torch.empty((n,), **meta),
+            torch.empty((G, n), device="meta", dtype=torch.int32),
+            torch.empty((G, n), **meta), torch.empty((G, n), **meta))
+
+
 @pytest.mark.parametrize("n,limit", [(32, 236), (256, 236), (512, 231),
                                      (1024, 225)])
 def test_b9_limit_is_the_plans(n, limit):
-    """B9's limit for the correlated Gaussian, which
-    ``EnsembleSampler(fused=True)`` checks at construction on a CUDA
-    device, is where its plan (the wrapper's check) finds no route."""
-    assert fused_stretch.plan(n, limit, 0) is not None
-    assert fused_stretch.plan(n, limit + 1, 0) is None
-    fused_stretch.check_target_fits(n, limit, 0)
-    with pytest.raises(ValueError, match=f"up to d={limit}"):
-        fused_stretch.check_target_fits(n, limit + 1, 0)
+    """B9 held the correlated Gaussian's constants in shared memory and so
+    refused it past d = ``limit`` at n walkers, in its wrapper and in
+    ``EnsembleSampler(fused=True)`` on a CUDA device. Past that d it now
+    reads them from device memory: the plan finds a launch there, and
+    the wrapper goes on to its device check rather than refusing. What
+    limit remains (each walker's residual in shared memory) is far past
+    B4's d = 20,832."""
+    for d in (limit, limit + 1, 240, 300, 1000):
+        lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
+        consts = "shared" if d <= limit else "device"
+        assert fused_stretch.plan(n, d, 0)[1] == consts
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fused_stretch.fused_stretch(*_b9_meta(2, n, d), lp, n // 2)
+    top = fused_stretch.max_d(n, 0)
+    assert top >= 40_316 > 20_832
+    assert fused_stretch.plan(n, top, 0)[1] == "device"
+    assert fused_stretch.plan(n, top + 1, 0) is None
 
 
 def test_fused_samplers_refuse_at_construction_for_cuda():
-    """On a CUDA device, ``EnsembleSampler(fused=True)`` refuses a 240-d
-    Gaussian as it is built (nothing touches the card), as B9's plan
-    finds no route; ``DreamZs(fused=True)``, whose B1 takes any d, and
-    ``Dram(fused=True)``, whose B4 does, are built on either device in
-    both of DreamZs's modes, and the CPU takes every one."""
+    """On a CUDA device the fused samplers refuse at construction only what
+    no kernel takes (a target without a kernel form, float64), and build
+    on the 240-d Gaussian that ``EnsembleSampler(fused=True)`` once refused
+    there (B9 reads its constants from device memory), as
+    ``DreamZs(fused=True)`` (B1, both modes) and ``Dram(fused=True)``
+    (B4) do; nothing touches the card, and the CPU takes every one."""
     d = 240
     lp = targets.correlated_gaussian(np.zeros(d), np.eye(d))
-    for rng in ("stream", "kernel"):
-        for device in ("cuda", "cpu"):
+    for device in ("cuda", "cpu"):
+        for rng in ("stream", "kernel"):
             bt.DreamZs(lp, n_chains=32, fused=True, fused_rng=rng,
                        device=device)
-    with pytest.raises(ValueError, match="kernel B9"):
-        bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cuda")
-    bt.EnsembleSampler(lp, n_chains=32, fused=True, device="cpu")
-    for device in ("cuda", "cpu"):
+        bt.EnsembleSampler(lp, n_chains=32, fused=True, device=device)
         bt.Dram(lp, n_chains=2, fused=True, device=device)
-    small = targets.correlated_gaussian(np.zeros(8), np.eye(8))
-    bt.DreamZs(small, n_chains=32, fused=True, device="cuda")
-    bt.EnsembleSampler(small, n_chains=32, fused=True, device="cuda")
+    user = lambda x: -0.5 * torch.sum(x * x, dim=-1)
+    for kw in (dict(log_like_fn=user), dict(log_like_fn=lp,
+                                            dtype=torch.float64)):
+        with pytest.raises(ValueError, match="kernel B9|float32"):
+            bt.EnsembleSampler(n_chains=32, fused=True, device="cuda", **kw)
 
 
 def test_max_d_is_where_the_plan_ends():

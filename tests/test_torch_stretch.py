@@ -20,6 +20,10 @@ move), per generation and fused over kernel B9's plain version.
   ``convert.py``'s round trip.
 """
 
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,15 +39,19 @@ from bipymc_tpu.samplers import stretch as jstretch
 import bipymc_tpu_torch as bt
 from bipymc_tpu_torch import convert
 from bipymc_tpu_torch.core.rng import StepWords
-from bipymc_tpu_torch.ops.fused_stretch import (MAX_SHARED_BYTES, MAX_WALKERS,
+from bipymc_tpu_torch.ops.fused_stretch import (CONSTS, MAX_SHARED_BYTES,
+                                                MAX_WALKERS, ROUTES,
                                                 fused_stretch,
-                                                fused_stretch_plain, plan)
+                                                fused_stretch_plain, max_d,
+                                                plan)
 from bipymc_tpu_torch.samplers import api, stretch
 from bipymc_tpu_torch.samplers.stretch_fused import make_chunk_runner
 from bipymc_tpu_torch.testing import (match_stretch_decisions,
                                       stretch_log_alpha)
 
 torch.set_num_threads(2)
+
+CSRC = Path(bt.__file__).resolve().parent / "csrc"
 
 MEAN = np.array([1.0, -1.0])
 COV = np.array([[2.0, 0.8], [0.8, 1.0]])
@@ -197,21 +205,25 @@ def test_b9_plan_fits_the_population_where_it_can(n, d, route):
     memory where it fits the H100's 227 KB opt-in limit, with all of a
     half's walkers in one round (L lanes a walker, L × n/2 ≤ 1,024), else
     in global memory, with as many walkers at once as their residuals
-    leave room for; a forced route that does not fit refused."""
-    chosen, L, threads, smem = plan(n, d, 0)
-    assert chosen == route and smem <= MAX_SHARED_BYTES == 232_448
+    leave room for; a forced route that does not fit refused. The
+    constants stay in shared memory at these shapes; past them (the
+    Gaussian at d = 240) they are read from device memory."""
+    chosen, consts, L, threads, smem = plan(n, d, 0)
+    assert chosen == route and consts == "shared"
+    assert smem <= MAX_SHARED_BYTES == 232_448
     assert L in (1, 2, 4, 8, 16, 32) and L * n // 2 <= 1024
     assert plan(n, d, 0, route="global")[0] == "global"
     if route == "global":
         assert plan(n, d, 0, route="shared") is None
         assert 32 <= threads < L * n // 2
         # the mixture needs no residual scratch: every walker in one round
-        assert plan(n, d, 1, 4)[:3] == ("global", 2, 1024)
+        assert plan(n, d, 1, 4)[:4] == ("global", "shared", 2, 1024)
     else:
         assert threads == L * n // 2
-        assert plan(n, d, 0, route="shared") == (chosen, L, threads, smem)
-    # the Gaussian's constants alone past the limit: no route
-    assert plan(8, 240, 0) is None
+        assert plan(n, d, 0, route="shared") == (chosen, consts, L, threads,
+                                                 smem)
+    # the Gaussian's constants alone past the limit: from device memory
+    assert plan(8, 240, 0)[:4] == ("shared", "device", 32, 128)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -257,6 +269,92 @@ def test_log_alpha_and_decision_matching():
     second[3, 5] = ~second[3, 5]              # a second-half bit alone
     with pytest.raises(AssertionError, match="generation 3, walker 5"):
         match_stretch_decisions(second, acc, margin.clamp_min(1.0))
+
+
+# the correlated Gaussian past the shared-memory constants: on the card B9
+# reads them from device memory there (plan's consts "device")
+@pytest.mark.parametrize("n,d", [(16, 240), (8, 300)])
+def test_plain_matches_pallas_interpret_past_shared_constants(n, d):
+    G = 3
+    jlp, lp = _targets("gaussian", d)
+    assert plan(n, d, 0)[1] == "device"
+    x0, j, z, log_u = _b9_operands(G, n, d, seed=n + d)
+    lp0 = lp(x0)
+    x, lph, acc = fused_stretch(x0, lp0, j, z, log_u, lp, n // 2)
+    jx, jl, jacc = fused_stretch_pallas(
+        jnp.asarray(x0.numpy()), jnp.asarray(lp0.numpy()),
+        jnp.asarray(_scal(j, z, log_u)), block_logp_from_scalar(jlp, d),
+        n_true=n, half=n // 2, d_true=d, interpret=True)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(lph.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-6)
+    assert 0 < int(acc.sum()) < G * n
+
+
+def _c_plans(queries, tmp_path):
+    """``csrc/fused_stretch_plan.cuh::fused_stretch_plan`` built with the
+    host's C++ compiler, run on each (n, d, kind, n_modes, route, consts)
+    (-1 unforced, else the index in ``ROUTES`` / ``CONSTS``) at the H100's
+    shared memory: its plan as :func:`plan` writes it, or None."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the C plan with")
+    src = tmp_path / "plan.cpp"
+    src.write_text(
+        '#include <cstdio>\n#include "fused_stretch_plan.cuh"\n'
+        "int main() {\n  int q[7];\n"
+        '  while (std::scanf("%d %d %d %d %d %d %d", q, q + 1, q + 2,'
+        " q + 3, q + 4, q + 5, q + 6) == 7) {\n"
+        "    b9plan::Plan p;\n"
+        "    if (!b9plan::fused_stretch_plan(q[0], q[1], q[2], q[3], q[4],"
+        " q[5], q[6], &p))\n"
+        '      std::puts("None");\n'
+        "    else\n"
+        '      std::printf("%d %d %d %d %zu\\n", p.route, p.consts, p.L,'
+        " p.threads, p.smem);\n  }\n}\n")
+    exe = tmp_path / "plan"
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{CSRC}", str(src), "-o",
+                    str(exe)], check=True, capture_output=True, timeout=120)
+    text = "".join(f"{n} {d} {kind} {m} {MAX_SHARED_BYTES} {r} {c}\n"
+                   for n, d, kind, m, r, c in queries)
+    out = subprocess.run([str(exe)], input=text, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    plans = []
+    for line in out.splitlines():
+        if line == "None":
+            plans.append(None)
+            continue
+        route, consts, L, threads, smem = map(int, line.split())
+        plans.append((ROUTES[route], CONSTS[consts], L, threads, smem))
+    return plans
+
+
+def test_plan_matches_the_c_plan(tmp_path):
+    """``plan`` mirrors the C plan the launch makes, over a grid that
+    crosses every edge: the register instance's (d 16, 17; n 256, 258),
+    L's (d 32, 33; L × n/2 at 1,024), the population's (n × d about
+    227 KB), the constants' (the Gaussian at d 225–237 by n, the 16-mode
+    mixture near d 3,250) and the residuals' (the Gaussian near
+    ``max_d``), each unforced and with every route and place forced."""
+    grid = [(n, d, kind, m)
+            for n in (2, 8, 18, 32, 62, 64, 66, 256, 258, 512, 1024)
+            for d in (1, 3, 4, 16, 17, 32, 33, 100, 129, 225, 226, 231, 232,
+                      236, 237, 240, 300, 1000, 3248, 3249, 3250, 40316,
+                      40317, 50876, 50877)
+            for kind, m in ((0, 0), (1, 4), (1, 16))]
+    queries = [(*q, r, c) for q in grid for r in (-1, 0, 1)
+               for c in (-1, 0, 1)]
+    want = [plan(n, d, kind, m, None if r < 0 else ROUTES[r],
+                 None if c < 0 else CONSTS[c])
+            for n, d, kind, m, r, c in queries]
+    assert _c_plans(queries, tmp_path) == want
+    assert sum(p is None for p in want) > 0
+    assert {(p[0], p[1]) for p in want if p} == {
+        (r, c) for r in ROUTES for c in CONSTS}
+    assert max_d(64, 0) == 40_316 and max_d(1024, 0) == 50_876
+    assert max_d(64, 1, 16) is None
 
 
 # ------------------------------------------------ the fused runner
@@ -327,6 +425,25 @@ def test_sampler_matches_jax(monkeypatch, fused):
     np.testing.assert_allclose(s.super_chain, js.super_chain, rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(s.acceptance_fraction, js.acceptance_fraction)
+
+
+def test_fused_sampler_matches_jax_past_shared_constants(monkeypatch):
+    """The fused engine on a 240-d correlated Gaussian (on the card, B9's
+    constants from device memory), 70 generations (a chunk of 64 and
+    one of 6), in both packages from the same start on the JAX run's
+    words: the same decisions, chains within rtol 1e-5."""
+    jlp, lp = _targets("gaussian", 240)
+    x0 = (0.3 * np.random.default_rng(22).standard_normal((16, 240))
+          ).astype(np.float32)
+    js = bp.EnsembleSampler(jlp, n_chains=16, seed=6, fused=True)
+    js.run_mcmc(70, jnp.asarray(x0))
+    s = _port_sampler(monkeypatch, lp, 6, True)
+    s.run_mcmc(70, x0)
+    acc = s._history["accepted"]
+    np.testing.assert_array_equal(acc, np.asarray(js._history["accepted"]))
+    np.testing.assert_allclose(s.super_chain, js.super_chain, rtol=1e-5,
+                               atol=1e-6)
+    assert 0 < acc.mean() < 1
 
 
 @pytest.mark.parametrize("fused", [False, True])
