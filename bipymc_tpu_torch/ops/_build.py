@@ -40,7 +40,8 @@ _U64 = ctypes.c_uint64
 ERR_SHARED_MEMORY = -1
 # a cluster launch's refusal, before the launch: the occupancy query
 # (cudaOccupancyMaxActiveClusters) finds no room on the card for one
-# cluster of the planned size (csrc/chol.cu returns it as -2)
+# cluster of the planned size (csrc/chol.cu and csrc/bchol.cu return it
+# as -2)
 ERR_NO_CLUSTER = -2
 # C signatures of the entry points, by source name
 SIGNATURES = {
@@ -60,7 +61,7 @@ SIGNATURES = {
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _F,
                        _P, _P, _P, _I, _I, _P, _P]),
     "sqdist": ("sqdist_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P]),
+    "bchol": ("bchol_launch", [_P, _P, _P, _P, _I, _I, _P, _P]),
     "chol": ("chol_launch", [_P, _P, _I, _I, _P]),
     "chol_coop": ("chol_coop_launch", [_P, _P, _P, _P, _I, _I, _P]),
     "trisolve": ("trisolve_launch",
@@ -77,6 +78,7 @@ ENTRY_POINTS = {
                             [_I, _I, _I, _I, _I, _I, _P]),
     "fused_chunk_plan": ("fused_chunk", "fused_chunk_plan",
                          [_I, _I, _I, _I, _I, _I, _I, _P]),
+    "bchol_plan": ("bchol", "bchol_plan", [_I, _I, _P]),
 }
 
 

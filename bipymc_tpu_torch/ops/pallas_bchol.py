@@ -23,8 +23,16 @@ reference's gradients: the Cholesky adjoint shared with B7
 solve, ``_cs_bwd`` (``:301-315``): ȳ = L⁻ᵀ z̄, and L̄ gains −(L⁻ᵀ z̄) zᵀ.
 A CPU tensor runs the plain forward through the same Functions.
 ``cholesky_solve_batched.launches`` counts the kernel's launches through
-either entry point.
+either entry point, and ``cholesky_solve_batched.last_plan`` is the
+:class:`Plan` the last launch took: ``P`` CTAs of a thread-block cluster
+a matrix (2 where the batch leaves SMs idle, else 1), ``bufs`` panel
+slots in shared memory and its bytes, from ``csrc/bchol_plan.cuh``.
+:func:`plan` reads the same plan through the card's entry point; there is
+no Python copy of it.
 """
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +40,27 @@ from bipymc_tpu_torch.ops import _build
 from bipymc_tpu_torch.ops.pallas_chol import (Cholesky, chol_adjoint,
                                               cholesky_plain)
 
-MAX_N = 1600        # the kernel keeps its panel, ~n x 36 floats, in smem
+MAX_N = 1600        # the kernel keeps its panel, ~n x 32 floats, in smem
+
+
+class Plan(NamedTuple):
+    """B6's launch (``csrc/bchol_plan.cuh``): CTAs a matrix, panel slots,
+    dynamic shared memory bytes a CTA."""
+    P: int
+    bufs: int
+    smem: int
+
+
+def plan(b: int, n: int) -> Plan:
+    """The plan B6 takes for b matrices of n x n on the current card, read
+    from the C plan through ``csrc/bchol.cu::bchol_plan``."""
+    out = (ctypes.c_int * 3)()
+    err = _build.library("bchol_plan")(b, n, ctypes.addressof(out))
+    _build.check(err, "bchol")
+    return Plan(*out)
+
+
+_LAST_PLAN = (ctypes.c_int * 3)()      # written by each launch
 
 
 def cholesky_solve_plain(a: torch.Tensor, y: torch.Tensor | None = None):
@@ -58,9 +86,11 @@ def _bchol_kernel(a: torch.Tensor, y: torch.Tensor | None):
         err = _build.library("bchol")(
             a.data_ptr(), 0 if y is None else y.data_ptr(), L.data_ptr(),
             0 if z is None else z.data_ptr(), b, n,
-            torch.cuda.current_stream(a.device).cuda_stream)
+            torch.cuda.current_stream(a.device).cuda_stream,
+            ctypes.addressof(_LAST_PLAN))
         _build.check(err, "bchol")
         cholesky_solve_batched.launches += 1
+        cholesky_solve_batched.last_plan = Plan(*_LAST_PLAN)
     return L, z
 
 
@@ -118,6 +148,7 @@ def cholesky_solve_batched(a: torch.Tensor, y: torch.Tensor | None = None):
 
 
 cholesky_solve_batched.launches = 0
+cholesky_solve_batched.last_plan = None
 
 
 def cholesky_batched(a: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Kernels B2 and B9 from two checkouts of the port, on one card.
+"""Kernels B2, B6 and B9 from two checkouts of the port, on one card.
 
-Holds one tree's B2 (``dream_propose``) and B9 (``fused_stretch``)
-against another's (a parent commit unpacked with ``git archive`` beside
-this one) on the same operands: B2 at config 3's [256, 100] (k = 6 rows;
-u_mask and u_e slices of a [n, 3d + 11] uniform block, as the
-per-generation step passes them) and at config 5's [1,024, 2]; B9 at the
-stretch workload's first chunk, [G, n, d] = [64, 256, 16]. It checks what
-a change did to their outputs and device times, which ``chip_smoke.py``
-(one tree) cannot. Run the trees in turns, each ``run`` its own process
+Holds one tree's B2 (``dream_propose``), B6 (``cholesky_solve_batched``)
+and B9 (``fused_stretch``) against another's (a parent commit unpacked
+with ``git archive`` beside this one) on the same operands: B2 at config
+3's [256, 100] (k = 6 rows; u_mask and u_e slices of a [n, 3d + 11]
+uniform block, as the per-generation step passes them) and at config 5's
+[1,024, 2]; B6 at config 4's [64, 512, 512] (``chip_smoke.spd_batch``'s
+matrices, seed 99, as phase 2c times it); B9 at the stretch workload's
+first chunk, [G, n, d] = [64, 256, 16]. It checks what a change did to
+their outputs and device times, which ``chip_smoke.py`` (one tree)
+cannot. B6 is timed five ways, in turns within the run (the order below,
+then back): L and z warm; L and z with 128 MB written over L2 before each
+call; inside config 4's step (``Dram`` over ``GpRegressor._lml_impl`` on
+config 4's data, as phase 7 runs it: 2 x 50 steps profiled after 50 of
+warm-up, the step's other kernels before each launch); L alone; and B7's
+cooperative route (``csrc/chol_coop.cu``) on the same matrices, L alone. Run the trees in turns, each ``run`` its own process
 (each imports its own ``bipymc_tpu_torch`` and builds its own kernels),
 from the root of the checkout::
 
@@ -25,8 +32,9 @@ durations from ``torch.profiler`` over the launches it recorded of 200,
 after 20 of warm-up), that count, and ms a launch by CUDA events around
 the same 200, and saves the outputs; ``compare`` holds every run's
 outputs to the first's (B9's bit for bit; B2's within x_star rtol 1e-5 /
-atol 1e-6 and log_jac rtol 1e-5 / atol 1e-4: a redesign may sum in
-another order) and prints one JSON line. Needs a CUDA card.
+atol 1e-6 and log_jac rtol 1e-5 / atol 1e-4, B6's L within
+5e-6·max|L| and z within 1e-5·max|z|, phase 2c's bounds: a redesign may
+sum in another order) and prints one JSON line. Needs a CUDA card.
 """
 
 import json
@@ -43,6 +51,9 @@ SEED = 0
 B2_SHAPES = {"config3": (256, 100), "config5": (1024, 2)}
 B2_KW = dict(n_pairs=3, b=1e-4, b_star=1e-6)
 ST_N, ST_D, ST_G = 256, 16, 64
+B6_B, B6_N = 64, 512
+# B6's five timings, in this order and then back (one turn each way)
+B6_MODES = ("warm", "l2_overwritten", "in_step", "l_alone", "b7_coop")
 
 
 def _package(root):
@@ -98,6 +109,11 @@ def make_ops(out):
                         torch.float32, dev)
     saved["b9"] = {"x0": x0.cpu(), "scales": torch.from_numpy(scales),
                    "ops": [a.cpu() for a in words]}
+    import chip_smoke
+    a, y = chip_smoke.spd_batch(B6_B, B6_N, seed=99, dev=dev)
+    x4, y4 = chip_smoke.config4_data()
+    saved["b6"] = {"a": a.cpu(), "y": y.cpu(), "x4": torch.from_numpy(x4),
+                   "y4": torch.from_numpy(y4)}
     torch.save(saved, out)
 
 
@@ -129,6 +145,54 @@ def timed(fn, key, reps=200, warmup=20):
     return us / n / 1e3, n, e0.elapsed_time(e1) / reps
 
 
+def b6_step_sampler(bt, x4, y4, dev):
+    """Config 4's sampler as ``chip_smoke.py`` phase 7 builds it, after 50
+    steps: ``Dram(seed=1)`` of 64 chains over the GP log-ML plus a
+    N(0, 2²) prior, two B6 launches a step."""
+    gp = bt.GpRegressor(device=dev)
+
+    def log_post(theta):
+        p = {"log_lengthscale": theta[:, 0:2], "log_sigma_f": theta[:, 2],
+             "log_sigma_n": theta[:, 3]}
+        return (gp._lml_impl(p, x4, y4)
+                - 0.5 * torch.sum((theta / 2.0) ** 2, dim=-1))
+
+    s = bt.Dram(log_post, seed=1, n_chains=B6_B, device=dev)
+    s.run_mcmc(50, np.zeros(4), cov_est=np.eye(4) * 0.05)
+    return s
+
+
+def b6_times(bt, b6, dev):
+    """B6's device ms a launch in :data:`B6_MODES`' five ways, in turns;
+    and its outputs (L, z) warm."""
+    from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
+                                                   cholesky_solve_batched)
+    from bipymc_tpu_torch.ops.pallas_chol import _chol_kernel
+
+    a, y = b6["a"].to(dev), b6["y"].to(dev)
+    x4, y4 = b6["x4"].to(dev), b6["y4"].to(dev)
+    junk = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def overwritten():
+        junk.fill_(1.0)                 # 128 MB over the 50 MB L2
+        cholesky_solve_batched(a, y)
+
+    s = b6_step_sampler(bt, x4, y4, dev)
+    calls = {"warm": (lambda: cholesky_solve_batched(a, y), "bchol", 200),
+             "l2_overwritten": (overwritten, "bchol", 200),
+             "in_step": (lambda: s.run_mcmc(50), "bchol", 2),
+             "l_alone": (lambda: cholesky_batched(a), "bchol", 200),
+             "b7_coop": (lambda: _chol_kernel(a, "cooperative"),
+                         "chol_coop", 200)}
+    res = {m: [] for m in B6_MODES}
+    for m in B6_MODES + B6_MODES[::-1]:
+        fn, key, reps = calls[m]
+        ms, rec, _ = timed(fn, key, reps=reps, warmup=min(20, reps))
+        res[m].append({"device_ms": ms, "recorded": rec})
+    L, z = cholesky_solve_batched(a, y)
+    return res, [L.cpu(), z.cpu()]
+
+
 def run(root, ops_path, out):
     bt = _package(root)
     from bipymc_tpu_torch.ops.dream_proposal import dream_propose
@@ -154,6 +218,7 @@ def run(root, ops_path, out):
     ms, rec, ev = timed(call, "fused_stretch")
     res["b9"] = {"device_ms": ms, "recorded": rec, "events_ms": ev,
                  "plan": fused_stretch.last_plan}
+    res["b6"], outs["b6"] = b6_times(bt, saved["b6"], dev)
     torch.cuda.synchronize()
     torch.save(outs, out)
     print(json.dumps(res), flush=True)
@@ -178,6 +243,15 @@ def compare(paths):
                                               and torch.equal(j1, j2)),
                             "within_tolerance": within}
             ok &= within
+        (L1, z1), (L2, z2) = first["b6"], other["b6"]
+        dl, dz = float((L2 - L1).abs().max()), float((z2 - z1).abs().max())
+        within = (dl <= 5e-6 * float(L1.abs().max())
+                  and dz <= 1e-5 * float(z1.abs().max()))
+        r["b6"] = {"max_abs_dL": dl, "max_abs_dz": dz,
+                   "bit_equal": bool(torch.equal(L1, L2)
+                                     and torch.equal(z1, z2)),
+                   "within_tolerance": within}
+        ok &= within
         readings[p] = r
     print(json.dumps({"against": paths[0], "readings": readings}))
     return 0 if ok else 1

@@ -24,6 +24,10 @@ the float64 rule of chip_smoke.py's phase 2d: within 1.5 x the plain
 version's distance from a float64 solve, plus 1e-6.
 """
 
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -330,6 +334,110 @@ def test_b8_plan_fits_the_card(m):
         else:
             assert 2 <= p.ring < tiles and 1 <= p.chunk <= p.ring // 2
 
+
+CSRC = Path(__file__).resolve().parents[1] / "bipymc_tpu_torch" / "csrc"
+H100_SMS = 132                       # the H100's SMs
+B6_DEAL = r"""
+#include <cstdio>
+#include <vector>
+#include "bchol_plan.cuh"
+using namespace b6plan;
+// The tiles group g of G takes on a walk from (I, J) (the kernel's loop).
+void walk(int I, int J, int g, int G, int nb, int P, int me, bool one,
+          std::vector<int>& seen) {
+  advance(&I, &J, g, nb, P, me, one);
+  while (J < nb) {
+    ++seen[I * nb + J];
+    advance(&I, &J, G, nb, P, me, one);
+  }
+}
+// 1 if, at every panel step k = 0 .. nb - 2, the CTAs of a P-CTA cluster
+// take each tile (I, J), k < J <= I < nb, exactly once, and each only in
+// a column it owns: the owner of column K = k + 1 that column with all 8
+// groups, then its rest with the 6 groups beside the look-ahead; the
+// other CTA its rest with all 8; else 0.
+int deals(int nb, int P) {
+  for (int k = 0; k + 1 < nb; ++k) {
+    const int K = k + 1;
+    std::vector<int> seen(nb * nb, 0);
+    for (int me = 0; me < P; ++me) {
+      const bool la = owner(K, P) == me;
+      std::vector<int> mine(nb * nb, 0);
+      if (la)
+        for (int g = 0; g < kGroups; ++g)
+          walk(K, K, g, kGroups, nb, P, me, true, mine);
+      const int J0 = first_own(K + 1, nb, P, me);
+      const int G = la ? kGroups - kLaGroups : kGroups;
+      for (int g = 0; g < G; ++g) walk(J0, J0, g, G, nb, P, me, false, mine);
+      for (int I = 0; I < nb; ++I)
+        for (int J = 0; J < nb; ++J) {
+          if (mine[I * nb + J] && owner(J, P) != me) return 0;
+          seen[I * nb + J] += mine[I * nb + J];
+        }
+    }
+    for (int I = 0; I < nb; ++I)
+      for (int J = 0; J < nb; ++J)
+        if (seen[I * nb + J] != (K <= J && J <= I ? 1 : 0)) return 0;
+  }
+  return 1;
+}
+int main() {
+  int b, n, sms, smem;
+  while (std::scanf("%d %d %d %d", &b, &n, &sms, &smem) == 4) {
+    Plan p;
+    if (!plan(b, n, sms, smem, &p)) {
+      std::puts("None");
+      continue;
+    }
+    std::printf("%d %d %d %zu %d\n", p.P, p.bufs, p.nb, p.smem,
+                deals(p.nb, p.P));
+  }
+}
+"""
+
+
+def _b6_c_plans(queries, tmp_path):
+    """``csrc/bchol_plan.cuh::plan`` built with the host's C++ compiler,
+    on each (b, n) at the H100's SMs and shared memory: (P, bufs, nb,
+    smem, whether the snake deals every tile of every step once)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the C plan with")
+    src, exe = tmp_path / "b6plan.cpp", tmp_path / "b6plan"
+    src.write_text(B6_DEAL)
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{CSRC}", str(src), "-o",
+                    str(exe)], check=True, capture_output=True, timeout=120)
+    text = "".join(f"{b} {n} {H100_SMS} {pallas_chol.SMEM_PER_BLOCK}\n"
+                   for b, n in queries)
+    out = subprocess.run([str(exe)], input=text, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    return [None if line == "None" else tuple(map(int, line.split()))
+            for line in out.splitlines()]
+
+
+def test_b6_plan_fits_the_card_and_deals_every_tile_once(tmp_path):
+    """B6's C plan for every n the wrapper takes (1 … 1600) and batches
+    across the SM count (64 × 2 = 128 and 66 × 2 = 132 of 132 SMs, 200
+    and 1,024 past it): one or two CTAs a matrix (two only where the batch
+    leaves SMs idle and there are two block columns), two panel slots up
+    to n = 896 and one above, shared memory within a block's 227 KB, and
+    at every panel step the snake deals each tile of the trailing triangle
+    to exactly one CTA, which owns its column, and the kernel's walks give
+    each of its tiles to exactly one group. Past ``MAX_N`` there is no
+    plan."""
+    batches = (1, 8, 64, 66, 200, 1024)
+    queries = [(b, n) for b in batches
+               for n in range(1, pallas_bchol.MAX_N + 1)]
+    plans = _b6_c_plans(queries + [(64, pallas_bchol.MAX_N + 1)], tmp_path)
+    assert plans[-1] is None
+    for (b, n), p in zip(queries, plans):
+        P, bufs, nb, smem, deals = p
+        assert nb == -(-n // 32) and deals == 1, (b, n, p)
+        assert P == (2 if nb >= 2 and 2 * b <= H100_SMS else 1), (b, n, p)
+        assert bufs == (2 if n <= 896 else 1), (b, n, p)
+        assert smem == 4 * (bufs * (nb - 1) * 32 * 32 + 32 * 36 + 68)
+        assert smem <= pallas_chol.SMEM_PER_BLOCK
+    assert {p[0] for p in plans[:-1]} == {1, 2}
 
 # ------------------------------------------- B8's arithmetic, emulated
 def _fma(a, b, c):
