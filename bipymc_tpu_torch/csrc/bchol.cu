@@ -30,24 +30,24 @@
 //   triangle belongs to CTA owner(J), dealt in a snake; L is factored in
 //   place in the output (a 512^2 matrix is 1 MB, beyond a cluster's
 //   shared memory), and each CTA reads and writes only its own columns;
-// - every CTA holds the step's solved panel (the rows below the diagonal
-//   block, 32 floats each, quads XOR-swizzled by row) in shared memory,
-//   in a slot of the step's parity where two fit (n <= 896), else one;
-// - panel step k: the owner of column K = k + 1 first updates that
-//   column's tiles with every warp, then its first four warps take the
-//   look-ahead while the CTA's other warps, and every warp of the other
-//   CTA, update their own trailing tiles with panel k. The look-ahead:
-//   one warp factors diagonal block K (lane i holds row i; a column takes
-//   its pivot's reciprocal square root, rsqrtf, and multiplies, so no
-//   IEEE square root or division sits on the dependent chain) and solves
-//   z's block K; then the four warps solve panel K's rows against it, a
-//   row a thread, multiplying by the same reciprocals, read as plain
-//   shared loads; write them to L and push them into the panel slot of
-//   every CTA of the cluster through distributed shared memory (with one
-//   slot, each CTA copies them from L after the step); and update z's
-//   rows below. One barrier.cluster ends a step. The diagonal factor thus
+// - panel step k: every CTA copies the solved panel k (its rows below
+//   the diagonal block, 32 floats each, quads XOR-swizzled by row) from L
+//   into its shared memory through L2; the owner of column K = k + 1
+//   first updates that column's tiles with every warp, then its first
+//   four warps take the look-ahead while the CTA's other warps, and every
+//   warp of the other CTA, update their own trailing tiles with panel k.
+//   The look-ahead: one warp factors diagonal block K (lane i holds row
+//   i; a column takes its pivot's reciprocal square root, rsqrtf, and
+//   multiplies, so no IEEE square root or division sits on the dependent
+//   chain) and solves z's block K; then the four warps solve panel K's
+//   rows against it, a row a thread, multiplying by the same reciprocals,
+//   read as plain shared loads; write them to L; and update z's rows
+//   below. One barrier.cluster ends a step. The diagonal factor thus
 //   hides behind the other warps' trailing update instead of stalling 15
-//   warps;
+//   warps. (Pushing the solved panel into every CTA's shared memory
+//   through distributed shared memory, into a slot of the step's parity,
+//   took 1.7 % longer at config 4 and needs two slots, which do not fit
+//   past n = 896: PERF.md, "PR 26".);
 // - a trailing tile C -= A B^T takes 64 threads, 4 x 4 outputs each (rows
 //   ty + 8u, four adjacent columns 4 tx .. 4 tx + 3): the operands are
 //   16-byte reads of the panel slot (A broadcast across 8 threads, B's 8
@@ -258,17 +258,15 @@ __device__ __forceinline__ void factor_diag(float* Lm, float* zm, int n,
   }
 }
 
-// The four look-ahead warps (tl = 0 .. 127): panel K's rows R >= 32 (K +
-// 1), a row a thread, solve x L_KK^T = a against lt and inv (each column
-// takes the updates of the columns before it in order, then multiplies by
-// its reciprocal pivot); x is written to L and, where given, into slot
-// `push` of every CTA of the cluster; with z, z_R -= x . zk.
+// The look-ahead warps (tl = 0 .. 32 kLaWarps - 1): panel K's rows R >=
+// 32 (K + 1), a row a thread, solve x L_KK^T = a against lt and inv (each
+// column takes the updates of the columns before it in order, then
+// multiplies by its reciprocal pivot); x is written to L; with z, z_R -=
+// x . zk.
 __device__ __forceinline__ void solve_panel(float* Lm, float* zm, int n,
                                             int K, bool vec, const float* lt,
                                             const float* inv, const float* zk,
-                                            float* push, int tl,
-                                            cg::cluster_group& cluster) {
-  const int P = static_cast<int>(cluster.num_blocks());
+                                            int tl) {
   for (int R = (K + 1) * kNb + tl; R < n; R += kLaWarps * 32) {
     // an opaque offset a row, so that the compiler reloads the diagonal
     // block's values from shared memory for each row instead of hoisting
@@ -296,12 +294,8 @@ __device__ __forceinline__ void solve_panel(float* Lm, float* zm, int n,
     }
 #pragma unroll
     for (int q = 0; q < kNb; q += 4) {
-      const float4 v = make_float4(a[q], a[q + 1], a[q + 2], a[q + 3]);
-      store4(Lm, R, K * kNb + q, n, vec, v);
-      if (push)
-        for (int r = 0; r < P; ++r)
-          *reinterpret_cast<float4*>(cluster.map_shared_rank(push, r) +
-                                     pq(R - kNb, q / 4)) = v;
+      store4(Lm, R, K * kNb + q, n, vec,
+             make_float4(a[q], a[q + 1], a[q + 2], a[q + 3]));
     }
     if (zm) {
       float s = __ldcg(zm + R);
@@ -314,12 +308,11 @@ __device__ __forceinline__ void solve_panel(float* Lm, float* zm, int n,
 
 __global__ void __launch_bounds__(kThreads, 1)
 bchol_kernel(const float* __restrict__ a, const float* __restrict__ y,
-             float* L, float* z, int b, int n, int bufs) {
+             float* L, float* z, int b, int n) {
   extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const smem = reinterpret_cast<float*>(smem4);   // the panel slot
   const int nb = (n + kNb - 1) / kNb;
-  const int slot = (nb - 1) * kNb * kNb;        // floats a panel slot
-  float* const lt = smem + bufs * slot;         // L_KK^T, rows of kLd
+  float* const lt = smem + (nb - 1) * kNb * kNb;  // L_KK^T, rows of kLd
   float* const inv = lt + kNb * kLd;            // 1 / diag(L_KK)
   float* const zk = inv + kNb;                  // z's block K, solved
   int* const failed = reinterpret_cast<int*>(zk + kNb);
@@ -360,17 +353,15 @@ bchol_kernel(const float* __restrict__ a, const float* __restrict__ y,
     __threadfence();
     __syncthreads();
 
-    // step k: panel k (in slot k & 1, or 0) updates the trailing tiles;
-    // the owner of column K = k + 1 updates that column first and then
-    // factors it and solves panel K (the look-ahead). k = -1 is the
-    // look-ahead of column 0 alone.
+    // step k: panel k updates the trailing tiles; the owner of column K =
+    // k + 1 updates that column first and then factors it and solves
+    // panel K (the look-ahead). k = -1 is the look-ahead of column 0 alone.
     for (int k = -1; k + 1 < nb; ++k) {
       const int K = k + 1;
       const bool la = owner(K, P) == me;
-      const float* pk = smem + (bufs == 2 ? (k & 1) : 0) * slot;
-      if (k >= 0 && bufs == 1) {
-        // one slot: panel k from L (written by the look-ahead of the
-        // step before, in either CTA), read through L2
+      if (k >= 0) {
+        // panel k from L (written by the look-ahead of the step before, in
+        // either CTA), read through L2
         for (int e = tid; e < (n - K * kNb) * (kNb / 4); e += kThreads) {
           const int R = K * kNb + e / (kNb / 4), q = e % (kNb / 4);
           const float* p = Lm + static_cast<long long>(R) * n + k * kNb;
@@ -384,21 +375,19 @@ bchol_kernel(const float* __restrict__ a, const float* __restrict__ y,
       }
       if (k >= 0 && la) {
         // column K first, every group
-        update_tiles(Lm, pk, n, vec, nb, P, me, true, K, K, g, kGroups,
+        update_tiles(Lm, smem, n, vec, nb, P, me, true, K, K, g, kGroups,
                      lt_id);
         __syncthreads();
       }
       if (la && warp < kLaWarps) {
         if (warp == 0) factor_diag(Lm, zm, n, K, vec, lt, inv, zk, failed);
         asm volatile("bar.sync 1, %0;" ::"n"(kLaWarps * 32) : "memory");
-        float* push = bufs == 2 && K + 1 < nb ? smem + (K & 1) * slot
-                                              : nullptr;
-        solve_panel(Lm, zm, n, K, vec, lt, inv, zk, push, tid, cluster);
+        solve_panel(Lm, zm, n, K, vec, lt, inv, zk, tid);
         __threadfence();
       } else if (k >= 0) {
         const int g0 = la ? kLaGroups : 0;
         const int J0 = first_own(K + 1, nb, P, me);
-        update_tiles(Lm, pk, n, vec, nb, P, me, false, J0, J0, g - g0,
+        update_tiles(Lm, smem, n, vec, nb, P, me, false, J0, J0, g - g0,
                      kGroups - g0, lt_id);
       }
       cluster.sync();
@@ -448,7 +437,7 @@ cudaError_t card(int* sms, int* max_smem) {
 }  // namespace
 
 // The plan bchol_launch makes for b matrices of n x n on this card, into
-// out: P, bufs, dynamic shared memory bytes. Returns -1 where no plan
+// out: P, dynamic shared memory bytes. Returns -1 where no plan
 // takes the shape, else the cudaError_t of asking the card.
 extern "C" int bchol_plan(int b, int n, int* out) {
   int sms = 0, max_smem = 0;
@@ -457,8 +446,7 @@ extern "C" int bchol_plan(int b, int n, int* out) {
   Plan p;
   if (!plan(b, n, sms, max_smem, &p)) return -1;
   out[0] = p.P;
-  out[1] = p.bufs;
-  out[2] = static_cast<int>(p.smem);
+  out[1] = static_cast<int>(p.smem);
   return 0;
 }
 
@@ -479,8 +467,7 @@ extern "C" int bchol_launch(const void* a, const void* y, void* L, void* z,
   if (!plan(b, n, sms, max_smem, &p)) return -1;
   if (plan_out) {
     plan_out[0] = p.P;
-    plan_out[1] = p.bufs;
-    plan_out[2] = static_cast<int>(p.smem);
+    plan_out[1] = static_cast<int>(p.smem);
   }
   const int smem = static_cast<int>(p.smem);
   static int attr_smem = 0;             // the largest size set so far
@@ -516,7 +503,7 @@ extern "C" int bchol_launch(const void* a, const void* y, void* L, void* z,
   err = cudaLaunchKernelEx(&cfg, bchol_kernel, static_cast<const float*>(a),
                            static_cast<const float*>(y),
                            static_cast<float*>(L), static_cast<float*>(z), b,
-                           n, p.bufs);
+                           n);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // The launch plan of kernel B6 (bchol.cu): how many CTAs of a thread-block
-// cluster factor one matrix, how many panel slots their shared memory
-// holds, and which CTA updates which trailing tile at each panel step.
+// cluster factor one matrix, the shared memory each takes, and which CTA
+// updates which trailing tile at each panel step.
 // Plain C++ with no CUDA header, so the CPU tests build it with the host's
 // compiler; the kernel deals its tiles with the same functions.
 
@@ -27,7 +27,6 @@ constexpr int kMaxN = 1600;
 
 struct Plan {
   int P;              // CTAs of a cluster a matrix: 1 or 2
-  int bufs;           // panel slots: 2 (by the step's parity) or 1
   int nb;             // block columns, ceil(n / 32)
   std::size_t smem;   // bytes of dynamic shared memory a CTA
 };
@@ -40,31 +39,27 @@ B6_HD inline int owner(int J, int P) {
   return P == 1 ? 0 : (J ^ (J >> 1)) & 1;
 }
 
-// Shared memory of one CTA: bufs panel slots, each the panel's rows below
-// the first diagonal block, (nb - 1) x 32 rows of 32 floats; the diagonal
+// Shared memory of one CTA: the panel slot, the panel's rows below the
+// first diagonal block, (nb - 1) x 32 rows of 32 floats; the diagonal
 // block's L^T (32 rows of kLd), its reciprocal pivots, z's block, and a
 // flag (4 floats).
-inline std::size_t smem_bytes(int nb, int bufs) {
-  return (static_cast<std::size_t>(bufs) * (nb - 1) * kNb * kNb +
-          kNb * kLd + 2 * kNb + 4) * sizeof(float);
+inline std::size_t smem_bytes(int nb) {
+  return (static_cast<std::size_t>(nb - 1) * kNb * kNb + kNb * kLd +
+          2 * kNb + 4) * sizeof(float);
 }
 
 // The launch for b matrices of n x n on a card of `sms` SMs whose blocks
 // may take max_smem bytes of shared memory. Two CTAs a matrix where the
 // batch leaves SMs idle (2 b <= sms: config 4's 64 matrices take 128 of
 // the H100's 132 SMs) and there are two block columns to deal; else one,
-// the same code with a cluster of one. Two panel slots where they fit
-// (n <= 896 at 227 KB), so the look-ahead pushes the next panel while this
-// step's is read; else one. Returns false where n is out of range or one
-// slot does not fit.
+// the same code with a cluster of one. Returns false where n is out of
+// range or the panel slot does not fit (n = 1600 takes 205,584 of 227 KB).
 inline bool plan(int b, int n, int sms, int max_smem, Plan* p) {
   if (b < 1 || n < 1 || n > kMaxN) return false;
   p->nb = (n + kNb - 1) / kNb;
   p->P = p->nb >= 2 && 2 * b <= sms ? 2 : 1;
-  const std::size_t room = static_cast<std::size_t>(max_smem);
-  p->bufs = smem_bytes(p->nb, 2) <= room ? 2 : 1;
-  p->smem = smem_bytes(p->nb, p->bufs);
-  return p->smem <= room;
+  p->smem = smem_bytes(p->nb);
+  return p->smem <= static_cast<std::size_t>(max_smem);
 }
 
 // Panel step k (k = 0 .. nb - 2) updates the tiles (I, J), k < J <= I <

@@ -25,8 +25,8 @@ A CPU tensor runs the plain forward through the same Functions.
 ``cholesky_solve_batched.launches`` counts the kernel's launches through
 either entry point, and ``cholesky_solve_batched.last_plan`` is the
 :class:`Plan` the last launch took: ``P`` CTAs of a thread-block cluster
-a matrix (2 where the batch leaves SMs idle, else 1), ``bufs`` panel
-slots in shared memory and its bytes, from ``csrc/bchol_plan.cuh``.
+a matrix (2 where the batch leaves SMs idle, else 1) and the bytes of
+shared memory a CTA, from ``csrc/bchol_plan.cuh``.
 :func:`plan` reads the same plan through the card's entry point; there is
 no Python copy of it.
 """
@@ -44,23 +44,22 @@ MAX_N = 1600        # the kernel keeps its panel, ~n x 32 floats, in smem
 
 
 class Plan(NamedTuple):
-    """B6's launch (``csrc/bchol_plan.cuh``): CTAs a matrix, panel slots,
-    dynamic shared memory bytes a CTA."""
+    """B6's launch (``csrc/bchol_plan.cuh``): CTAs a matrix, dynamic
+    shared memory bytes a CTA."""
     P: int
-    bufs: int
     smem: int
 
 
 def plan(b: int, n: int) -> Plan:
     """The plan B6 takes for b matrices of n x n on the current card, read
     from the C plan through ``csrc/bchol.cu::bchol_plan``."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 2)()
     err = _build.library("bchol_plan")(b, n, ctypes.addressof(out))
     _build.check(err, "bchol")
     return Plan(*out)
 
 
-_LAST_PLAN = (ctypes.c_int * 3)()      # written by each launch
+_LAST_PLAN = (ctypes.c_int * 2)()      # written by each launch
 
 
 def cholesky_solve_plain(a: torch.Tensor, y: torch.Tensor | None = None):

@@ -1,6 +1,9 @@
-"""Helpers that hold kernels B1, B9 and B10 against their plain versions.
+"""Helpers that hold kernels B1, B9 and B10 against their plain versions,
+and the operands the GP's kernels are checked and timed on
+(:func:`config4_data`, :func:`spd_batch`).
 
-Used by ``chip_smoke.py`` and the tests; no sampler path calls them.
+Used by ``chip_smoke.py``, the tests and ``tools/b2_b9_turns.py``; no
+sampler path calls them.
 A float32 kernel and its plain version may round a Metropolis decision
 differently where log u lies within rounding of log α, so the checks
 read the plain version's log α (:func:`plain_log_alpha`,
@@ -163,3 +166,22 @@ def bit_equal(a, b):
     as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
               8: torch.int64}[a.element_size()]
     return torch.equal(a.view(as_int), b.view(as_int))
+
+
+def config4_data(n=512):
+    """Config 4's training set, as ``benchmarks/run_all.py:298-303``
+    makes it: x [n, 2], y [n], float32."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-4, 4, (n, 2)).astype(np.float32)
+    f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1])
+    y = (f + rng.normal(0, 0.2, n)).astype(np.float32)
+    return x, y
+
+
+def spd_batch(b, n, seed, dev):
+    """SPD test matrices as ``tests/test_pallas_bchol.py`` makes them:
+    x xᵀ/24 + 3I with x [b, n, 24], and y [b, n]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, 24), generator=g, device=dev)
+    a = x @ x.transpose(-1, -2) / 24 + 3 * torch.eye(n, device=dev)
+    return a, torch.randn((b, n), generator=g, device=dev)

@@ -6,7 +6,7 @@ and B9 (``fused_stretch``) against another's (a parent commit unpacked
 with ``git archive`` beside this one) on the same operands: B2 at config
 3's [256, 100] (k = 6 rows; u_mask and u_e slices of a [n, 3d + 11]
 uniform block, as the per-generation step passes them) and at config 5's
-[1,024, 2]; B6 at config 4's [64, 512, 512] (``chip_smoke.spd_batch``'s
+[1,024, 2]; B6 at config 4's [64, 512, 512] (``testing.spd_batch``'s
 matrices, seed 99, as phase 2c times it); B9 at the stretch workload's
 first chunk, [G, n, d] = [64, 256, 16]. It checks what a change did to
 their outputs and device times, which ``chip_smoke.py`` (one tree)
@@ -109,9 +109,10 @@ def make_ops(out):
                         torch.float32, dev)
     saved["b9"] = {"x0": x0.cpu(), "scales": torch.from_numpy(scales),
                    "ops": [a.cpu() for a in words]}
-    import chip_smoke
-    a, y = chip_smoke.spd_batch(B6_B, B6_N, seed=99, dev=dev)
-    x4, y4 = chip_smoke.config4_data()
+    from bipymc_tpu_torch.testing import config4_data, spd_batch
+
+    a, y = spd_batch(B6_B, B6_N, seed=99, dev=dev)
+    x4, y4 = config4_data()
     saved["b6"] = {"a": a.cpu(), "y": y.cpu(), "x4": torch.from_numpy(x4),
                    "y4": torch.from_numpy(y4)}
     torch.save(saved, out)

@@ -57,10 +57,10 @@ non-zero:
    too; B6 at config 4's [64, 512, 512] and at (b, n) in {(3, 64),
    (5, 200), (12, 256), (8, 1000)}, and at the edges of its design: config
    4's n at b = 200 (one CTA a matrix; 64 take two) and b = 1, n in {1,
-   31, 33, 511, 513, 1024, 1600} (one panel slot past n = 896), L within
-   atol 5e-6·max|L| and z within atol 1e-5·max|z|, L bit-equal between
-   the two entry points, each launch's plan (P, bufs, bytes) equal to
-   ``ops/pallas_bchol.plan``'s, P = 1 and P = 2 both run, and a batch
+   31, 33, 511, 513, 1024, 1600}, L within atol 5e-6·max|L| and z within
+   atol 1e-5·max|z|, L bit-equal between the two entry points, each
+   launch's plan (P, bytes) equal to ``ops/pallas_bchol.plan``'s, P = 1
+   and P = 2 both run, and a batch
    (two CTAs a matrix) with matrices that are not positive definite: NaN
    in the same matrices on both sides. B6 also on config 4's own Gram
    matrices
@@ -2339,16 +2339,6 @@ def rw_rhat_stop(dev):
 C4_CHAINS, C4_N = 64, 512
 
 
-def config4_data():
-    """Config 4's training set, as ``benchmarks/run_all.py:298-303``
-    makes it."""
-    rng = np.random.default_rng(7)
-    x = rng.uniform(-4, 4, (C4_N, 2)).astype(np.float32)
-    f = np.sin(2 * x[:, 0]) * np.cos(x[:, 1])
-    y = (f + rng.normal(0, 0.2, C4_N)).astype(np.float32)
-    return x, y
-
-
 def b5_operands(c, n, m, k, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     A = 3.0 * torch.randn((c, n, k), generator=g, device=dev)
@@ -2357,6 +2347,7 @@ def b5_operands(c, n, m, k, seed, dev):
 
 
 def check_b5(dev):
+    from bipymc_tpu_torch.testing import config4_data
     from bipymc_tpu_torch.ops.pallas_kernels import sqdist, sqdist_plain
 
     # config 4: each chain's inputs scaled by its length-scales, centred
@@ -2443,15 +2434,6 @@ def config5_b5_operands(dev):
     return xs - mu, th - mu
 
 
-def spd_batch(b, n, seed, dev):
-    """SPD test matrices as ``tests/test_pallas_bchol.py`` makes them:
-    x xᵀ/24 + 3I with x [b, n, 24], and y [b, n]."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((b, n, 24), generator=g, device=dev)
-    a = x @ x.transpose(-1, -2) / 24 + 3 * torch.eye(n, device=dev)
-    return a, torch.randn((b, n), generator=g, device=dev)
-
-
 # about where phase 7's chains end (its posterior mean)
 C4_THETA_END = (-0.18, 0.45, -0.26, -1.57)
 GRAM_TOL = (1e-5, 1e-4)       # max|dL|/max|L|, max|dz|/max|z| per matrix
@@ -2463,6 +2445,7 @@ def config4_grams(dev):
     from phase 7's start, 0, to where its chains end, each moved by
     N(0, 0.3²) per coordinate; and y [64, 512]."""
     import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.testing import config4_data
 
     x, y = config4_data()
     rng = np.random.default_rng(11)
@@ -2530,6 +2513,7 @@ def check_b6_gram(dev):
 
 
 def check_b6(dev):
+    from bipymc_tpu_torch.testing import spd_batch
     from bipymc_tpu_torch.ops.pallas_bchol import (cholesky_batched,
                                                    cholesky_solve_batched,
                                                    cholesky_solve_plain)
@@ -2538,8 +2522,8 @@ def check_b6(dev):
     # config 4's shape (two CTAs a matrix), older edge shapes, the non-PD
     # batch (two CTAs), then the new design's edges: config 4's n at one
     # CTA a matrix (b = 200 fills the card) and at b = 1, a tile and one
-    # either side of it, 512 and 1,024 either side of a block, one panel
-    # slot (n > 896) up to MAX_N
+    # either side of it, 512 and 1,024 either side of a block, up to
+    # MAX_N
     cases = [(C4_CHAINS, C4_N, False), (3, 64, False), (5, 200, False),
              (12, 256, False), (8, 1000, False), (8, 128, True),
              (200, C4_N, False), (1, C4_N, False), (4, 1, False),
@@ -2593,7 +2577,7 @@ def check_b6(dev):
     log(f"B6 bchol: L within 5e-6·max|L| and z within 1e-5·max|z| of the "
         f"plain version, L bit-equal between its two entry points, NaN in "
         f"the same matrices, in {len(cases)} cases; each launch its plan "
-        f"(P, bufs, smem):",
+        f"(P, smem):",
         json.dumps({f"{b}x{n}": list(p) for (b, n), p in plans.items()}))
     check_b6_gram(dev)
 
@@ -2650,6 +2634,7 @@ def np_log_ml(theta, x, y, normalize_y=False):
 
 def config4_path(dev):
     import bipymc_tpu_torch as bt
+    from bipymc_tpu_torch.testing import config4_data
     from bipymc_tpu_torch.ops.pallas_bchol import cholesky_solve_batched
     from bipymc_tpu_torch.ops.pallas_kernels import sqdist
 
@@ -2819,6 +2804,7 @@ def check_b5_grad(dev):
 
 
 def check_b7(dev):
+    from bipymc_tpu_torch.testing import spd_batch
     from bipymc_tpu_torch.ops.pallas_bchol import cholesky_batched
     from bipymc_tpu_torch.ops.pallas_chol import (CLUSTER_MAX_N, _chol_kernel,
                                                   cholesky_pallas,
@@ -2925,6 +2911,7 @@ def check_b7(dev):
 
 
 def check_b8(dev):
+    from bipymc_tpu_torch.testing import spd_batch
     from bipymc_tpu_torch.ops.pallas_chol import cholesky_plain
     from bipymc_tpu_torch.ops.pallas_solve import (plan, solve_chol,
                                                    tri_solve,

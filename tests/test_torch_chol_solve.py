@@ -353,9 +353,9 @@ void walk(int I, int J, int g, int G, int nb, int P, int me, bool one,
 }
 // 1 if, at every panel step k = 0 .. nb - 2, the CTAs of a P-CTA cluster
 // take each tile (I, J), k < J <= I < nb, exactly once, and each only in
-// a column it owns: the owner of column K = k + 1 that column with all 8
-// groups, then its rest with the 6 groups beside the look-ahead; the
-// other CTA its rest with all 8; else 0.
+// a column it owns: the owner of column K = k + 1 that column with all
+// kGroups groups, then its rest with the groups beside the look-ahead's;
+// the other CTA its rest with all kGroups; else 0.
 int deals(int nb, int P) {
   for (int k = 0; k + 1 < nb; ++k) {
     const int K = k + 1;
@@ -389,8 +389,7 @@ int main() {
       std::puts("None");
       continue;
     }
-    std::printf("%d %d %d %zu %d\n", p.P, p.bufs, p.nb, p.smem,
-                deals(p.nb, p.P));
+    std::printf("%d %d %zu %d\n", p.P, p.nb, p.smem, deals(p.nb, p.P));
   }
 }
 """
@@ -398,8 +397,8 @@ int main() {
 
 def _b6_c_plans(queries, tmp_path):
     """``csrc/bchol_plan.cuh::plan`` built with the host's C++ compiler,
-    on each (b, n) at the H100's SMs and shared memory: (P, bufs, nb,
-    smem, whether the snake deals every tile of every step once)."""
+    on each (b, n) at the H100's SMs and shared memory: (P, nb, smem,
+    whether the snake deals every tile of every step once)."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the C plan with")
@@ -419,8 +418,8 @@ def test_b6_plan_fits_the_card_and_deals_every_tile_once(tmp_path):
     """B6's C plan for every n the wrapper takes (1 … 1600) and batches
     across the SM count (64 × 2 = 128 and 66 × 2 = 132 of 132 SMs, 200
     and 1,024 past it): one or two CTAs a matrix (two only where the batch
-    leaves SMs idle and there are two block columns), two panel slots up
-    to n = 896 and one above, shared memory within a block's 227 KB, and
+    leaves SMs idle and there are two block columns), one panel slot in
+    shared memory, within a block's 227 KB, and
     at every panel step the snake deals each tile of the trailing triangle
     to exactly one CTA, which owns its column, and the kernel's walks give
     each of its tiles to exactly one group. Past ``MAX_N`` there is no
@@ -431,11 +430,10 @@ def test_b6_plan_fits_the_card_and_deals_every_tile_once(tmp_path):
     plans = _b6_c_plans(queries + [(64, pallas_bchol.MAX_N + 1)], tmp_path)
     assert plans[-1] is None
     for (b, n), p in zip(queries, plans):
-        P, bufs, nb, smem, deals = p
+        P, nb, smem, deals = p
         assert nb == -(-n // 32) and deals == 1, (b, n, p)
         assert P == (2 if nb >= 2 and 2 * b <= H100_SMS else 1), (b, n, p)
-        assert bufs == (2 if n <= 896 else 1), (b, n, p)
-        assert smem == 4 * (bufs * (nb - 1) * 32 * 32 + 32 * 36 + 68)
+        assert smem == 4 * ((nb - 1) * 32 * 32 + 32 * 36 + 68)
         assert smem <= pallas_chol.SMEM_PER_BLOCK
     assert {p[0] for p in plans[:-1]} == {1, 2}
 

@@ -921,16 +921,9 @@ def _spd(b, n, seed):
     return [torch.from_numpy(v.astype(np.float32)) for v in (a, y)]
 
 
-def _b6_cluster(b, n):
-    """The CTAs a matrix B6's plan gives b matrices of n x n on this card:
-    two where the batch leaves SMs idle and there are two block columns."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 2 if n > 32 and 2 * b <= sms else 1
-
-
 # the design's edges (chip_smoke.py phase 2c): config 4's n at one CTA a
 # matrix (b = 200) and at b = 1, a tile and one either side of it, 512 and
-# 1,024 either side of a block, one panel slot (n > 896) up to MAX_N
+# 1,024 either side of a block, up to MAX_N
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n", [(64, 512), (3, 64), (5, 200), (12, 256),
                                  (8, 1000), (2, 33), (200, 512), (1, 512),
@@ -944,8 +937,7 @@ def test_b6_kernel_matches_plain(cuda, b, n):
     torch.cuda.synchronize()
     assert cholesky_solve_batched.launches == before + 2
     p = cholesky_solve_batched.last_plan
-    assert p == b6_plan(b, n) and p.P == _b6_cluster(b, n)
-    assert p.bufs == (2 if n <= 896 else 1)
+    assert p == b6_plan(b, n)
     L_ref, z_ref = cholesky_solve_plain(a, y)
     assert torch.equal(L, L_only)
     torch.testing.assert_close(L, L_ref, rtol=0,
