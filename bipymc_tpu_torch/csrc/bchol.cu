@@ -23,7 +23,7 @@
 // 0 .. J-1 have updated it, so each matrix walks 16 steps, each a
 // 32-column dependent factor, a panel solve and a trailing update; one
 // 512-thread block a matrix would leave 68 of the 132 SMs idle and stall
-// its warps at every factor (PERF.md, "PR 26"). This design:
+// its warps at every factor (PERF.md, section 6). This design:
 // - plan (bchol_plan.cuh): P = 2 CTAs of a thread-block cluster a matrix
 //   where the batch leaves SMs idle (config 4: 128 of 132 SMs), else 1,
 //   the same code with a cluster of one. Block column J of the lower
@@ -47,7 +47,7 @@
 //   warps. (Pushing the solved panel into every CTA's shared memory
 //   through distributed shared memory, into a slot of the step's parity,
 //   took 1.7 % longer at config 4 and needs two slots, which do not fit
-//   past n = 896: PERF.md, "PR 26".);
+//   past n = 896: PERF.md, section 6.);
 // - a trailing tile C -= A B^T takes 64 threads, 4 x 4 outputs each (rows
 //   ty + 8u, four adjacent columns 4 tx .. 4 tx + 3): the operands are
 //   16-byte reads of the panel slot (A broadcast across 8 threads, B's 8
